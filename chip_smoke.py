@@ -7,13 +7,24 @@ Phases, each of which must pass (any failure exits non-zero before the
 last line is printed):
 
   device    a CUDA card is present; prints nvidia-smi's name and power limit
-  build     builds every kernel of the front-end path from the sources in
-            this checkout (K1: openmvg_torch/csrc/two_nn.cu), in parallel
+  build     builds every kernel of the path from the sources in this
+            checkout (K1: openmvg_torch/csrc/two_nn.cu, K2:
+            openmvg_torch/csrc/seg_sum.cu) and the host library of the f64
+            polish (openmvg_torch/csrc/native.cpp), one compiler each, in
+            parallel
   kernel    holds K1 against its plain PyTorch version on the card: exact
             equality for uint8 (16 pairs of 4096x4096x128, ragged counts
             with valid_b masking, planted ties and duplicate rows), a stated
             tolerance for float32; times the kernel, the plain version and a
-            one-call PyTorch yardstick (cdist + topk, never used by the port)
+            one-call PyTorch yardstick (cdist + topk, never used by the port).
+            Holds K2 against its plain version for k in {6, 36, 64} and num
+            in {1, 128, 1024}, k 9 with num 50,000 (beyond the TPU kernel's
+            1024 segments, as the point-side sums of a problem without a
+            group table call it), and the edge cases (no rows, every row out
+            of range, segments without rows, one segment holding every row):
+            float32 within 1e-5 (1 + S), float64 within 1e-12 (1 + S), S the
+            segment's sum of |values| (seg_sum_check), and two launches on
+            one input bitwise equal
   pipeline  renders the textured-sphere dataset (100 views of 1024^2, the
             repo's realistic scale) on the card and runs the port's CLI
             init -> features (HIGH) -> pairs (CONTIGUOUS 6) -> matches ->
@@ -25,18 +36,31 @@ last line is printed):
             torch.profiler, prints each one's device busy share and
             heaviest device ops, and requires the re-run to write the same
             .feat/.desc/matches files byte for byte
-  measure   K1 on the matches stage's own descriptor stack and pair list:
-            equality with the plain version, kernel / plain / yardstick
-            times and the bound, for the kernels line
+  sfm       the port's sfm -s INCREMENTAL, color and eval on cuda, every
+            kernel's launch count set to 0 just before and read just after;
+            prints the engine's stage seconds and accepted f64 polish steps
+            and requires >= 98 of 100 poses, eval position_rmse <= 0.006
+            (0.2% of the 3.0 ring radius), reprojection rmse < 1 px, K2
+            launched, >= 1 accepted polish step and one colour per landmark
+            in colorized.ply; then runs the sfm stage once more under
+            torch.profiler in a fresh process (device busy share, heaviest
+            device ops) and reports whether it wrote the same sfm_data.json
+  measure   K1 on the matches stage's own descriptor stack and pair list,
+            K2 on the final bundle adjustment's pose ids with its own (O, 6)
+            J^T r and (O, 36) J^T J payloads: equality with the plain
+            version, kernel / plain / yardstick times and the bound, for the
+            kernels line
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
 """
 
 import argparse
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +68,7 @@ import time
 
 H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores
+H100_F64_FLOPS = 34e12    # float64 outside the tensor cores
 H100_BYTES = 3.35e12      # HBM3 bandwidth
 
 
@@ -89,21 +114,25 @@ def phase_device():
 
 
 def phase_build(kernels):
-    """Every kernel's nvcc runs at once, one process per source."""
+    """Every kernel's nvcc and the host library's g++ run at once, one
+    process per source."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from openmvg_torch.sfm import polish
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as ex:
-        futs = [ex.submit(k["module"].build) for k in kernels]
+    with ThreadPoolExecutor(len(kernels) + 1) as ex:
+        futs = [ex.submit(k["module"].build) for k in kernels] + [ex.submit(polish.build)]
         for f in futs:
             f.result()
     dt = time.perf_counter() - t0
+    log("[build] host library openmvg_torch/csrc/native.cpp built and loaded")
     for k in kernels:
         log(f"[build] {k['name']}: {k['source']} built and loaded")
         for line in k["module"].BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
-    log(f"[build] {len(kernels)} kernel source(s) in {dt:.2f} s")
+    log(f"[build] {len(kernels)} kernel source(s) and the host library in {dt:.2f} s")
 
 
 def two_nn_bound_ms(descs, counts, pairs, out_elems, int8=True):
@@ -253,9 +282,11 @@ def epipolar_check(md, pairs_kept, Rs, Cs, K, size):
 
 
 def profile_stage(name, argv):
-    """One CLI stage under torch.profiler: prints its wall time, the device
-    busy time (the CUDA kernels' and copies' own time; one stream, so they
-    do not overlap) and the heaviest device ops."""
+    """One CLI stage under torch.profiler (device activity only): prints its
+    wall time, the device busy time (the kernels' and copies' own time; one
+    stream, so they do not overlap) and the heaviest device ops.  The raw
+    event list is summed directly: building the profiler's per-op tables
+    for the sfm stage's ~10^6 device events took minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -263,24 +294,26 @@ def profile_stage(name, argv):
     from openmvg_torch import cli
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         if cli.main(argv) != 0:
             fail(f"stage {name} returned non-zero under the profiler")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    if not dev:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, d = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, d + e.duration_ns())
+    if not by_name:
         log(f"[profile] {name}: wall {wall:.2f} s; device time not measured "
             "(torch.profiler saw no CUDA events)")
         return
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:4]
+    busy = sum(d for _, d in by_name.values()) / 1e9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     log(f"[profile] {name}: wall {wall:.2f} s, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}%), {sum(e.count for e in dev)} device "
-        "ops; top: " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
-            for e in top))
+        f"({100 * busy / wall:.1f}%), {sum(n for n, _ in by_name.values())} device "
+        "ops; top: " + "; ".join(f"{k[:60]} {d / 1e6:.1f} ms x{n}" for k, (n, d) in top))
 
 
 def profile_stages(stages):
@@ -299,7 +332,7 @@ def profile_stages(stages):
             fail(f"the profiled re-run of stage {name} exited with {r.returncode}")
 
 
-def phase_pipeline(two_nn, n_views, size, work):
+def phase_pipeline(kernel_mods, n_views, size, work):
     import numpy as np
     import torch
 
@@ -311,7 +344,7 @@ def phase_pipeline(two_nn, n_views, size, work):
     focal = 1.2 * size
     step = min(2 * math.pi / n_views, 0.063)
     t0 = time.perf_counter()
-    imgdir, _, Rs, Cs, K = render_textured_sphere_dataset(
+    imgdir, gtdir, Rs, Cs, K = render_textured_sphere_dataset(
         work, n_views=n_views, size=size, focal=focal, seed=1, arc_step=step,
         device="cuda")
     log(f"[pipeline] rendered {n_views} views of {size}^2 on the card in "
@@ -330,7 +363,8 @@ def phase_pipeline(two_nn, n_views, size, work):
                     "-o", os.path.join(md, "matches.f.bin"), "-g", "f"]),
     ]
     secs = {}
-    two_nn.LAUNCHES = 0          # every kernel's count, just before the path
+    for m in kernel_mods:        # every kernel's count, just before the path
+        m.LAUNCHES = 0
     for name, argv in stages:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -339,7 +373,7 @@ def phase_pipeline(two_nn, n_views, size, work):
         secs[name] = time.perf_counter() - t
         if rc != 0:
             fail(f"stage {name} returned {rc}")
-    launches = {"two_nn": two_nn.LAUNCHES}   # read just after
+    launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in kernel_mods}  # just after
     log("[pipeline] stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     if launches["two_nn"] <= 0:
         fail("the matches stage did not launch K1")
@@ -386,7 +420,8 @@ def phase_pipeline(two_nn, n_views, size, work):
         stack[v, :len(d)] = d
     pairs = np.asarray(cli.load_pairs_file(os.path.join(md, "pairs.txt")), np.int32)
     return dict(secs=secs, launches=launches, stack=stack,
-                counts=np.asarray([len(d) for d in descs], np.int32), pairs=pairs)
+                counts=np.asarray([len(d) for d in descs], np.int32), pairs=pairs,
+                work=work, sfm=sfm, md=md, gtdir=gtdir)
 
 
 def phase_measure(two_nn, run, dev):
@@ -420,6 +455,224 @@ def phase_measure(two_nn, run, dev):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+class Tee(io.StringIO):
+    """Keeps what a stage prints and passes it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def library_seg_sum(vals, ids, num):
+    """One PyTorch call per use computing K2's function (index_add_, the
+    mask inside the timed call).  A yardstick only: the port never calls it
+    (index_add_ adds with atomics on the card, in no fixed order)."""
+    import torch
+
+    m = (ids >= 0) & (ids < num)
+    return torch.zeros((num, vals.shape[1]), dtype=vals.dtype,
+                       device=vals.device).index_add_(0, ids[m], vals[m])
+
+
+def seg_sum_bound_ms(O, k, num, itemsize):
+    """Least time for K2's work: ids (4 B) and vals (k values) read once a
+    row, (num, k) written once, against O * k additions at the float32
+    (or float64) rate outside the tensor cores."""
+    nbytes = O * 4 + O * k * itemsize + num * k * itemsize
+    t_bytes = nbytes / H100_BYTES
+    t_ops = O * k / (H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS)
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def seg_sum_check(seg_sum, got, vals, ids, num, tol):
+    """|got - ref| <= tol (1 + S) elementwise, ref the plain version on the
+    same inputs in float64 and S the segment's sum of |vals|: the rounding
+    of a sum scales with the magnitudes it adds, not with the result, which
+    cancels (45,000 float32 rows in one segment round to ~1e-3 where their
+    sum is near 0).  Returns the largest |got - ref|."""
+    ref = seg_sum.seg_sum_plain(vals.double(), ids, num)
+    scale = seg_sum.seg_sum_plain(vals.double().abs(), ids, num)
+    err = (got.double() - ref).abs()
+    if not bool((err <= tol * (1 + scale)).all()):
+        return None
+    return err.max().item() if err.numel() else 0.0
+
+
+def phase_kernel_k2(seg_sum, dev):
+    """K2 against its plain version (seg_sum_check): float32 within
+    1e-5 (1 + S), float64 within 1e-12 (1 + S); two launches on one input
+    bitwise equal."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    log("[kernel] seg_sum: kernel vs plain on the card")
+    cases = [(f"k{k} num{num}", 50000, k, num, None) for k in (6, 36, 64)
+             for num in (1, 128, 1024)]
+    cases += [("k9 num50000", 200000, 9, 50000, None),
+              ("no rows", 0, 6, 128, None), ("every row out of range", 5000, 36, 128, "out"),
+              ("segments without rows", 300, 6, 1024, None),
+              ("one segment holds every row", 200000, 64, 1024, "one")]
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        worst = 0.0
+        for name, O, k, num, kind in cases:
+            vals = torch.randn((O, k), generator=g, dtype=torch.float64).to(dtype).to(dev)
+            ids = torch.randint(0, num, (O,), generator=g)
+            out = torch.rand(O, generator=g) < 0.1
+            ids[out] = torch.tensor([-1, num, num + 5])[torch.randint(0, 3, (int(out.sum()),),
+                                                                      generator=g)]
+            if kind == "out":
+                ids[:] = num
+            elif kind == "one":
+                ids[:] = 5
+            ids = ids.to(torch.int32).to(dev)
+            got = seg_sum.seg_sum(vals, ids, num)
+            again = seg_sum.seg_sum(vals, ids, num)
+            torch.cuda.synchronize()
+            if got.shape != (num, k) or not torch.isfinite(got).all():
+                fail(f"seg_sum {name} {dtype}: bad output")
+            if not torch.equal(got, again):
+                fail(f"seg_sum {name} {dtype}: two launches differ")
+            err = seg_sum_check(seg_sum, got, vals, ids, num, tol)
+            if err is None:
+                fail(f"seg_sum {name} {dtype}: outside {tol:g} (1 + S)")
+            worst = max(worst, err)
+        errs[str(dtype).split(".")[1]] = worst
+        log(f"[kernel] seg_sum {dtype}: {len(cases)} cases within {tol:g} (1 + S), "
+            f"max |err| {worst:.3g}; two launches bitwise equal in every case")
+    return errs
+
+
+def phase_sfm(kernel_mods, run, n_views):
+    """sfm -> color -> eval on the card, with every kernel's count set to 0
+    just before and read just after, and the gates of the module note."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.io.ply import load_ply_vertices
+    from openmvg_torch.io.sfm_data import load_sfm_data
+    from openmvg_torch.sfm.scene import rmse
+    from openmvg_torch.utils.logging import stage_times
+
+    recon = os.path.join(run["work"], "recon")
+    recon_json = os.path.join(recon, "sfm_data.json")
+    ply = os.path.join(recon, "colorized.ply")
+    stages = [
+        ("sfm", ["sfm", "-i", run["sfm"], "-m", run["md"],
+                 "-M", os.path.join(run["md"], "matches.f.bin"), "-o", recon,
+                 "-s", "INCREMENTAL"]),
+        ("color", ["color", "-i", recon_json, "-o", ply]),
+        ("eval", ["eval", "-i", recon_json, "-g", run["gtdir"]]),
+    ]
+    secs = {}
+    printed = {name: Tee(sys.stdout) for name, _ in stages}
+    for m in kernel_mods:        # every kernel's count, just before the path
+        m.LAUNCHES = 0
+    for name, argv in stages:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed[name]):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        if rc != 0:
+            fail(f"stage {name} returned {rc}")
+    launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in kernel_mods}  # just after
+    stats = json.loads(printed["eval"].getvalue())
+    done = re.search(r"SfM done .* (\d+) f64 polish steps, (\d+) rounds",
+                     printed["sfm"].getvalue())
+    if done is None:
+        fail("the sfm stage printed no summary line")
+    polish_steps, rounds = int(done.group(1)), int(done.group(2))
+    log("[sfm] stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    log("[sfm] engine stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_times.items()))
+    scene = load_sfm_data(recon_json)
+    n_posed = int(scene.pose_valid.sum())
+    err_px = rmse(scene)
+    pts, cols = load_ply_vertices(ply)
+    log(f"[sfm] {n_posed}/{n_views} poses, {scene.n_landmarks} landmarks, rmse "
+        f"{err_px:.4f} px, position_rmse {stats.get('position_rmse')}, "
+        f"{polish_steps} accepted f64 polish steps, {rounds} rounds, "
+        f"launches {launches}")
+    if n_posed < math.ceil(0.98 * n_views):
+        fail(f"only {n_posed} of {n_views} poses reconstructed")
+    if not stats.get("ok") or not stats["position_rmse"] <= 0.006:
+        fail(f"position_rmse {stats.get('position_rmse')} above 0.006")
+    if not err_px < 1.0:
+        fail(f"reprojection rmse {err_px:.4f} px is not below 1 px")
+    if launches["seg_sum"] <= 0:
+        fail("the sfm stage did not launch K2")
+    if polish_steps < 1:
+        fail("the f64 polish accepted no step")
+    if len(pts) != scene.n_landmarks + n_posed or not np.isfinite(pts).all():
+        fail(f"colorized.ply holds {len(pts)} vertices for {scene.n_landmarks} landmarks "
+             f"and {n_posed} cameras")
+    engine = dict(stage_times)
+    # where the sfm stage's time goes: the same stage once more, alone in a
+    # fresh process under torch.profiler, into another directory
+    again = os.path.join(run["work"], "recon_profiled")
+    profile_stages([("sfm", stages[0][1][:-4] + ["-o", again, "-s", "INCREMENTAL"])])
+    with open(recon_json, "rb") as f1, open(os.path.join(again, "sfm_data.json"), "rb") as f2:
+        same = f1.read() == f2.read()
+    log(f"[sfm] the profiled re-run wrote {'the same' if same else 'a different'} "
+        "sfm_data.json")
+    return dict(secs=secs, launches=launches, engine=engine, stats=stats,
+                scene=scene, polish_steps=polish_steps, rerun_identical=same)
+
+
+def final_problem(scene):
+    """The final bundle adjustment's problem, rebuilt from the scene it
+    wrote (the polish after it changes no observation)."""
+    import torch
+
+    from openmvg_torch.sfm import ba
+
+    prob, _ = ba.problem_from_scene(scene, refine_intrinsics=ba.ADJUST_ALL,
+                                    dtype=torch.float32, device="cuda")
+    return prob
+
+
+def phase_measure_k2(seg_sum, prob):
+    """K2 at the main path's own shapes: the final BA's pose ids with its
+    (O, 6) J^T r and (O, 36) J^T J payloads, with the plan the BA uses."""
+    import torch
+
+    from openmvg_torch.sfm import ba
+
+    cfg = ba.BAConfig()
+    r, Jp6, _, _ = ba.jacobians(prob, cfg, ba.cam_fast_ok(prob))
+    ids, num = prob.obs_pose, prob.rotvec.shape[0]
+    plan = seg_sum.seg_sum_plan(ids, num)
+    out = {}
+    for name, vals in (("jtr_k6", ba._brmatvec(Jp6, -r).contiguous()),
+                       ("jtj_k36", ba._outer_flat(Jp6).contiguous())):
+        got = seg_sum.seg_sum(vals, ids, num, plan)
+        torch.cuda.synchronize()
+        err = seg_sum_check(seg_sum, got, vals, ids, num, 1e-5)
+        if err is None:
+            fail(f"seg_sum on the final BA's {name}: outside 1e-5 (1 + S)")
+        ms = cuda_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50)
+        plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(vals, ids, num), 20)
+        lib_ms = cuda_ms(lambda: library_seg_sum(vals, ids, num), 20)
+        O, k = vals.shape
+        bound, by = seg_sum_bound_ms(O, k, num, vals.element_size())
+        log(f"[measure] seg_sum {name} on the final BA (O {O}, k {k}, num {num}, "
+            f"{int(plan.perm.shape[0])} valid rows): max |err| {err:.3g}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {bound / ms * 100:.2f}% of the bound")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err=err, O=O, k=k, num=num)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--views", type=int, default=100)
@@ -431,21 +684,30 @@ def main():
     import torch
 
     import openmvg_torch  # noqa: F401  (numeric policy: no TF32)
-    from openmvg_torch.ops import two_nn
+    from openmvg_torch.ops import seg_sum, two_nn
 
     dev = torch.device("cuda")
     kernels = [dict(name="two_nn", module=two_nn, route="cuda",
                     source="openmvg_torch/csrc/two_nn.cu",
-                    replaces="openmvg_tpu/ops/pallas_matching.py:62")]
+                    replaces="openmvg_tpu/ops/pallas_matching.py:62"),
+               dict(name="seg_sum", module=seg_sum, route="cuda",
+                    source="openmvg_torch/csrc/seg_sum.cu",
+                    replaces="openmvg_tpu/ops/pallas_segsum.py:30")]
+    mods = [k["module"] for k in kernels]
     phase_build(kernels)
     kres = phase_kernel(two_nn, dev)
+    k2_errs = phase_kernel_k2(seg_sum, dev)
     if args.views != 100 or args.size != 1024:
         log(f"[pipeline] CUT: {args.views} views of {args.size}^2 "
             "(the realistic scale is 100 views of 1024^2)")
     with tempfile.TemporaryDirectory(prefix="omt_torch_smoke_") as work:
-        run = phase_pipeline(two_nn, args.views, args.size, work)
+        run = phase_pipeline(mods, args.views, args.size, work)
+        srun = phase_sfm(mods, run, args.views)
+    prob = final_problem(srun["scene"])
     meas = phase_measure(two_nn, run, dev)
+    m2 = phase_measure_k2(seg_sum, prob)
 
+    k2 = m2["jtr_k6"]
     line = {"kernels": [{
         "name": "two_nn", "route": "cuda", "source": kernels[0]["source"],
         "replaces": kernels[0]["replaces"], "launches": run["launches"]["two_nn"],
@@ -455,7 +717,18 @@ def main():
         "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
                              "library_ms": kres["headline_lib_ms"],
                              "bound_ms": kres["headline_bound_ms"]},
-    }], "pipeline_s": run["secs"]}
+    }, {
+        "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
+        "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
+        "max_abs_err": k2["max_abs_err"], "max_abs_err_f32_cases": k2_errs["float32"],
+        "max_abs_err_f64_cases": k2_errs["float64"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+        "shape": {"O": k2["O"], "k": k2["k"], "num": k2["num"]},
+        "jtj_k36": m2["jtj_k36"],
+    }], "pipeline_s": run["secs"], "sfm_s": srun["secs"], "engine_s": srun["engine"],
+        "polish_steps": srun["polish_steps"], "sfm_rerun_identical": srun["rerun_identical"],
+        "eval": {k: v for k, v in srun["stats"].items() if not isinstance(v, dict)}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

@@ -4,14 +4,23 @@ The package mirrors openmvg_tpu's layout so each module has one
 counterpart there:
 
   core/      index types and sentinels
+  csrc/      hand-written CUDA kernels (K1 two_nn.cu, K2 seg_sum.cu) and the
+             host C++ of the f64 polish (native.cpp), built at first use
+  geometry/  SO(3), poses, similarity alignment, geodesy
   io/        openMVG file formats (sfm_data.json, .feat/.desc, matches.*.bin,
-             PNG) and the converter from the reference package's records
-  models/    the Cameras record and calibration matrices
-  ops/       SIFT, descriptor matching (kernel K1 in csrc/two_nn.cu),
-             fundamental solvers, AC-RANSAC
-  sfm/       the Scene record, describers, robust estimation, geometric filter
-  utils/     pair graphs, device selection, synthetic datasets
-  cli.py     the init / features / pairs / matches / filter stages
+             PNG, PLY, Strecha ground truth) and the converter from the
+             reference package's records
+  models/    the six camera models
+  ops/       SIFT, descriptor matching (K1), fundamental / essential /
+             resection solvers, triangulation, AC-RANSAC, small dense
+             linear algebra, the segment sum (K2)
+  sfm/       the Scene record, describers, robust estimation, geometric
+             filter, tracks, bundle adjustment, f64 polish, filters, the
+             incremental engine, colorisation, evaluation
+  utils/     pair graphs, device selection, synthetic datasets, build,
+             stage timers, deadline
+  cli.py     init / features / pairs / matches / filter / sfm / color /
+             eval / pipeline
 
 It imports torch, numpy and scipy; never jax and never openmvg_tpu.
 """

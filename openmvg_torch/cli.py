@@ -1,12 +1,16 @@
 """Command-line front end of the port — the openMVG_main_* binaries as
-subcommands (counterpart: openmvg_tpu/cli.py, the init / features / pairs
-/ matches / filter stages).
+subcommands (counterpart: openmvg_tpu/cli.py, the stages of the
+one-command pipeline and eval).
 
   init      main_SfMInit_ImageListing.cpp  (EXIF -> sfm_data.json)
   features  main_ComputeFeatures.cpp       (SIFT, presets)
   pairs     main_PairGenerator.cpp         (EXHAUSTIVE | CONTIGUOUS)
   matches   main_ComputeMatches.cpp        (brute-force L2, ratio 0.8)
   filter    main_GeometricFilter.cpp       (AC-RANSAC f, 4 px, 2048 it)
+  sfm       main_SfM.cpp                   (INCREMENTAL engine, version 1)
+  color     main_ComputeSfM_DataColor.cpp  (colorized.ply)
+  eval      main_evalQuality.cpp           (Strecha ground truth)
+  pipeline  SfM_SequentialPipeline.py      (init .. color in one command)
 
 Flags, defaults and printed summaries are the reference's, plus --device:
 every stage runs on `cuda` unless `--device cpu` is given, and raises when
@@ -299,6 +303,107 @@ def cmd_filter(args):
     return 0
 
 
+def cmd_sfm(args):
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.io.ply import save_scene_ply
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm.pipeline_incremental import IncrementalConfig, incremental_sfm
+    from openmvg_torch.sfm.scene import rmse
+    from openmvg_torch.utils.logging import (format_stage_times, reset_stage_times,
+                                             stage_times)
+
+    engine = args.sfm_engine.upper()
+    if engine != "INCREMENTAL":
+        raise NotImplementedError(
+            f"engine {engine} is not ported yet: GLOBAL is ROADMAP queue 1 item 9, "
+            "INCREMENTALV2 and STELLAR item 10; use -s INCREMENTAL")
+    if args.output_format != "json":
+        raise NotImplementedError("sfm_data .bin/.xml are not ported yet (ROADMAP queue 1, "
+                                  "item 1); use --output_format json")
+    scene = _load_scene(args.input_file)
+    feats, _ = _load_features_for_scene(scene, args.match_dir)
+    matches = load_matches(args.match_file or os.path.join(args.match_dir, "matches.f.bin"))
+    os.makedirs(args.output_dir, exist_ok=True)
+    t0 = time.time()
+    refine = ba.ADJUST_ALL if args.refine_intrinsic_config == "ADJUST_ALL" else ba.ADJUST_NONE
+    initial_pair = None
+    if args.initial_pair_a and args.initial_pair_b:
+        names = [os.path.basename(n) for n in scene.view_filename]
+        initial_pair = (names.index(os.path.basename(args.initial_pair_a)),
+                        names.index(os.path.basename(args.initial_pair_b)))
+    cfg = IncrementalConfig(verbose=True, refine_intrinsics=refine,
+                            initializer=args.sfm_initializer, initial_pair=initial_pair)
+    reset_stage_times()
+    stats = {}
+    incremental_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
+    save_sfm_data(scene, os.path.join(args.output_dir, "sfm_data.json"))
+    save_scene_ply(scene, os.path.join(args.output_dir, "cloud_and_poses.ply"))
+    print(f"SfM done in {time.time() - t0:.1f}s: {int(scene.pose_valid.sum())} poses, "
+          f"{scene.n_landmarks} points, rmse={rmse(scene):.3f}px, "
+          f"{stats['polish_steps']} f64 polish steps, {stats['rounds']} rounds")
+    print("stage seconds:\n" + format_stage_times(stage_times))
+    return 0
+
+
+def cmd_color(args):
+    from openmvg_torch.io.ply import save_ply
+    from openmvg_torch.sfm.colorize import colorize
+
+    scene = _load_scene(args.input_file)
+    colors = colorize(scene)
+    save_ply(args.output_file, scene.X[scene.X_valid], colors[scene.X_valid],
+             camera_centers=scene.pose_C[scene.pose_valid])
+    print(f"colorized {int(scene.X_valid.sum())} points")
+    return 0
+
+
+def cmd_eval(args):
+    from openmvg_torch.io.gt_loaders import load_strecha_gt
+    from openmvg_torch.sfm.eval_quality import evaluate_against_gt
+
+    if args.html:
+        raise NotImplementedError("the HTML report is not ported yet (ROADMAP queue 1, "
+                                  "item 1, utils/report)")
+    stats = evaluate_against_gt(_load_scene(args.input_file), load_strecha_gt(args.gt_dir))
+    print(json.dumps({k: v for k, v in stats.items() if not isinstance(v, dict)}, indent=2))
+    return 0
+
+
+def cmd_pipeline(args):
+    """init -> features -> pairs -> matches -> filter -> sfm -> color in one
+    command (SfM_SequentialPipeline.py), each stage on args.device."""
+    out = args.output_dir
+    matches_dir = os.path.join(out, "matches")
+    recon_dir = os.path.join(out, "reconstruction_sequential")
+    os.makedirs(matches_dir, exist_ok=True)
+    sfm_json = os.path.join(out, "sfm_data.json")
+    stages = [
+        ["init", "-i", args.imageDirectory, "-o", out]
+        + (["-f", str(args.focal)] if args.focal else []) + ["-c", str(args.camera_model)],
+        ["features", "-i", sfm_json, "-o", matches_dir, "-m", args.describerMethod,
+         "-p", args.describerPreset],
+        ["pairs", "-i", sfm_json, "-o", os.path.join(matches_dir, "pairs.txt")],
+        ["matches", "-i", sfm_json, "-o", os.path.join(matches_dir, "matches.putative.bin"),
+         "-p", os.path.join(matches_dir, "pairs.txt"), "-r", str(args.ratio)],
+        ["filter", "-i", sfm_json, "-m", os.path.join(matches_dir, "matches.putative.bin"),
+         "-o", os.path.join(matches_dir, "matches.f.bin"), "-g", "f"],
+        ["sfm", "-i", sfm_json, "-m", matches_dir,
+         "-M", os.path.join(matches_dir, "matches.f.bin"), "-o", recon_dir,
+         "-s", args.sfm_engine],
+        ["color", "-i", os.path.join(recon_dir, "sfm_data.json"),
+         "-o", os.path.join(recon_dir, "colorized.ply")],
+    ]
+    for st in stages:
+        print(f"=== openmvg_torch {' '.join(st)}")
+        rc = main(st + ["--device", str(args.device)])
+        if rc != 0:
+            print(f"pipeline stage {st[0]} failed", file=sys.stderr)
+            return rc
+    print(f"pipeline complete -> {recon_dir}")
+    return 0
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="openmvg_torch",
                                  description=__doc__.splitlines()[0])
@@ -356,6 +461,39 @@ def build_parser():
                    choices=["f", "e", "h", "a", "u", "o"])
     p.add_argument("-r", "--guided_matching", action="store_true")
     p.add_argument("--max_iteration", type=int, default=2048)
+
+    p = stage("sfm", cmd_sfm)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--match_dir", required=True)
+    p.add_argument("-M", "--match_file", default=None)
+    p.add_argument("-o", "--output_dir", required=True)
+    p.add_argument("-s", "--sfm_engine", default="INCREMENTAL")
+    p.add_argument("-f", "--refine_intrinsic_config", default="ADJUST_ALL")
+    p.add_argument("-a", "--initial_pair_a", default="")
+    p.add_argument("-b", "--initial_pair_b", default="")
+    p.add_argument("-S", "--sfm_initializer", default="AUTO_PAIR")
+    p.add_argument("-R", "--rotationAveraging", type=int, default=2)
+    p.add_argument("-T", "--translationAveraging", type=int, default=3)
+    p.add_argument("--output_format", default="json")
+
+    p = stage("color", cmd_color)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+
+    p = stage("eval", cmd_eval)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-g", "--gt_dir", required=True)
+    p.add_argument("--html", default="")
+
+    p = stage("pipeline", cmd_pipeline)
+    p.add_argument("-i", "--imageDirectory", required=True)
+    p.add_argument("-o", "--output_dir", required=True)
+    p.add_argument("-s", "--sfm_engine", default="INCREMENTAL")
+    p.add_argument("-f", "--focal", type=float, default=0.0)
+    p.add_argument("-c", "--camera_model", type=int, default=3)
+    p.add_argument("-m", "--describerMethod", default="SIFT")
+    p.add_argument("-p", "--describerPreset", default="NORMAL")
+    p.add_argument("-r", "--ratio", type=float, default=0.8)
     return ap
 
 

@@ -58,13 +58,13 @@ def nullspace_exact(A):
         pr = k + flat // (m - k)
         pc = k + flat % (m - k)
         rows = M[b, pr].clone()            # swap rows k <-> pr
-        M[b, pr] = M[:, k]
+        M[b, pr] = M[:, k].clone()
         M[:, k] = rows
         cols = M[b, :, pc].clone()         # swap columns k <-> pc
-        M[b, :, pc] = M[:, :, k]
+        M[b, :, pc] = M[:, :, k].clone()
         M[:, :, k] = cols
         pk = perm[b, pc].clone()
-        perm[b, pc] = perm[:, k]
+        perm[b, pc] = perm[:, k].clone()
         perm[:, k] = pk
         M[:, k] = M[:, k] / M[:, k, k:k + 1]
         f = M[:, :, k].clone()

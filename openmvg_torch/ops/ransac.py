@@ -94,6 +94,14 @@ def _nfa_scan(err_sq, n_valid, min_samples, logalpha0, mult_error, loge0,
     return nfa, thr
 
 
+def tree_map(fn, *trees):
+    """fn over a model that is one tensor or a tuple of tensors (P3P's
+    (R, t)), leaf by leaf."""
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(fn(*leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
 def _round(fit_fn, error_fn, data, valid, weights, min_samples, n_samples,
            logalpha0, mult_error, loge0, max_threshold_sq, generators, gumbel):
     idx = draw_samples(generators, n_samples, min_samples, weights, gumbel)
@@ -101,7 +109,7 @@ def _round(fit_fn, error_fn, data, valid, weights, min_samples, n_samples,
     rows = torch.arange(B, device=idx.device)
     sub = tuple(d[rows[:, None, None], idx] for d in data)
     models, mvalid = fit_fn(sub)                  # (B, S, M, ...), (B, S, M)
-    flat = models.reshape((B, -1) + models.shape[3:])
+    flat = tree_map(lambda m: m.reshape((B, -1) + m.shape[3:]), models)
     mvalid = mvalid.reshape(B, -1)
     err = error_fn(flat, data)                    # (B, S*M, N)
     ok = valid[:, None, :] & mvalid[:, :, None] & ~torch.isnan(err)
@@ -109,7 +117,14 @@ def _round(fit_fn, error_fn, data, valid, weights, min_samples, n_samples,
     nfa, thr = _nfa_scan(err, valid.sum(-1), min_samples, logalpha0,
                          mult_error, loge0, max_threshold_sq)
     best = torch.argmin(nfa, dim=-1)
-    return flat[rows, best], nfa[rows, best], thr[rows, best], err[rows, best]
+    return (tree_map(lambda m: m[rows, best], flat), nfa[rows, best],
+            thr[rows, best], err[rows, best])
+
+
+def _select(cond, a, b):
+    """Per-row where over a model tree: a where cond (B,), else b."""
+    return tree_map(lambda x, y: torch.where(
+        cond.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 def ac_ransac(generators, fit_fn: Callable, error_fn: Callable, data, valid,
@@ -120,8 +135,9 @@ def ac_ransac(generators, fit_fn: Callable, error_fn: Callable, data, valid,
 
     data: tuple of (B, N, ...) tensors; valid (B, N) bool.  fit_fn maps a
     tuple of (B, S, min_samples, ...) samples to (models (B, S, M, ...),
-    model_valid (B, S, M)); error_fn maps (models (B, R, ...), data) to
-    squared residuals (B, R, N).  logalpha0 and precision_sq are scalars
+    model_valid (B, S, M)); a model is a tensor or a tuple of tensors.
+    error_fn maps (models (B, R, ...), data) to squared residuals
+    (B, R, N).  logalpha0 and precision_sq are scalars
     or (B,).  n_samples is split 90/10 between the global round and the
     inlier-resampling round.  gumbel: optional (B, s1 + s2, N) noise table,
     rows [0, s1) for the first round and [s1, s1 + s2) for the second.
@@ -153,7 +169,7 @@ def ac_ransac(generators, fit_fn: Callable, error_fn: Callable, data, valid,
                                   min_samples, s2, logalpha0, mult_error, loge0,
                                   prec, generators, g2)
     pick2 = nfa2 < nfa1
-    model = torch.where(pick2.reshape((B,) + (1,) * (m1.dim() - 1)), m2, m1)
+    model = _select(pick2, m2, m1)
     nfa = torch.where(pick2, nfa2, nfa1)
     thr = torch.where(pick2, thr2, thr1)
     err = torch.where(pick2[:, None], err2, err1)
@@ -161,6 +177,61 @@ def ac_ransac(generators, fit_fn: Callable, error_fn: Callable, data, valid,
     found = (nfa < 0) & (inliers.sum(-1) > min_samples)
     return ACRansacResult(model=model, inliers=inliers, nfa=nfa,
                           threshold_sq=thr, found=found)
+
+
+def ac_ransac_adaptive(generators, fit_fn: Callable, error_fn: Callable, data,
+                       valid, min_samples: int, logalpha0, mult_error: float,
+                       max_models: int = 1, round_size: int = 256,
+                       max_rounds: int = 16, reserve_rounds: int = 2,
+                       precision_sq=math.inf, gumbel=None):
+    """Adaptive-budget AC-RANSAC (counterpart: openmvg_tpu/ops/ransac.py
+    ac_ransac_adaptive; robust_estimator_ACRansac.hpp:326-489 early exit):
+    rounds of round_size samples until max_rounds, or until reserve_rounds
+    rounds past the first meaningful model; once a row has one, its next
+    rounds resample from that model's inliers.  Each batch row keeps its
+    own state and stops on its own; the loop ends when every row has.
+
+    gumbel: optional (B, max_rounds * round_size, N) noise table, round r
+    taking rows [r * round_size, (r + 1) * round_size).
+    Returns (ACRansacResult, n_rounds (B,) int64)."""
+    dt, dev = data[0].dtype, data[0].device
+    B = valid.shape[0]
+    n_valid = valid.sum(-1)
+    loge0 = torch.log10(torch.clamp(
+        max_models * (n_valid.to(torch.float32) - min_samples), min=1.0)).to(dt)
+    logalpha0 = torch.as_tensor(logalpha0, dtype=dt, device=dev).expand(B)
+    prec = torch.as_tensor(precision_sq, dtype=dt, device=dev).expand(B)
+    uni = valid.to(dt)
+
+    def table(r):
+        return None if gumbel is None else gumbel[:, r * round_size:(r + 1) * round_size]
+
+    model, nfa, thr, err = _round(fit_fn, error_fn, data, valid, uni, min_samples,
+                                  round_size, logalpha0, mult_error, loge0, prec,
+                                  generators, table(0))
+    found_it = torch.where(nfa < 0, 0, max_rounds).to(torch.int64)
+    it = torch.ones(B, dtype=torch.int64, device=dev)
+    for r in range(1, max_rounds):
+        active = (it < max_rounds) & ((nfa >= 0) | (it <= found_it + reserve_rounds))
+        if not bool(active.any()):
+            break
+        inl_w = ((err <= thr[:, None]) & valid).to(dt)
+        enough = (nfa < 0) & (inl_w.sum(-1) > min_samples)
+        w = torch.where(enough[:, None], inl_w, uni)
+        m2, nfa2, thr2, err2 = _round(fit_fn, error_fn, data, valid, w, min_samples,
+                                      round_size, logalpha0, mult_error, loge0, prec,
+                                      generators, table(r))
+        better = active & (nfa2 < nfa)
+        model = _select(better, m2, model)
+        found_it = torch.where(active & (nfa >= 0) & (nfa2 < 0), it, found_it)
+        thr = torch.where(better, thr2, thr)
+        err = torch.where(better[:, None], err2, err)
+        nfa = torch.where(active, torch.minimum(nfa, nfa2), nfa)
+        it = it + active.to(torch.int64)
+    inliers = (err <= thr[:, None]) & valid
+    found = (nfa < 0) & (inliers.sum(-1) > min_samples)
+    return ACRansacResult(model=model, inliers=inliers, nfa=nfa,
+                          threshold_sq=thr, found=found), it
 
 
 # logalpha0 helpers (ACParametrizationHelper, ACRansacKernelAdaptator.hpp:44-97)
@@ -177,5 +248,7 @@ def logalpha0_point_to_point(w, h, scaling=1.0, dtype=torch.float64):
     return torch.log10(math.pi / (w * h) / (scaling * scaling))
 
 
+LOGALPHA0_ANGULAR = math.log10(0.5)
 MULT_ERROR_POINT_TO_LINE = 0.5
 MULT_ERROR_POINT_TO_POINT = 1.0
+MULT_ERROR_ANGULAR = 0.25

@@ -18,24 +18,15 @@ tensor they launch the kernel or raise.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
 
+from openmvg_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
+
 FLT_MAX = float(np.finfo(np.float32).max)
 MAX_D = 128
 MAX_PAIRS = 65535  # grid.y
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "two_nn.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Kernel launches since import (or since the caller last set it to 0).
 LAUNCHES = 0
@@ -45,40 +36,12 @@ BUILD_LOG = ""
 _lib = None
 
 
-def _nvcc():
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the K1 kernel is built from "
-                       "openmvg_torch/csrc/two_nn.cu on a machine with the "
-                       "CUDA toolkit")
-
-
 def build():
     """Compile the kernel (once per source/flags version) and load it."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"two_nn_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                               capture_output=True, text=True)
-            BUILD_LOG = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCE}:\n{BUILD_LOG}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(so)
+    lib, BUILD_LOG = build_shared("two_nn.cu", nvcc(), NVCC_FLAGS)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("omt_two_nn_u8", "omt_two_nn_f32"):
         fn = getattr(lib, name)

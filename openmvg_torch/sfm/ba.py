@@ -1,0 +1,714 @@
+"""Bundle adjustment: Levenberg-Marquardt with an implicit Schur-complement,
+block-Jacobi preconditioned CG (counterpart: openmvg_tpu/sfm/ba.py; openMVG
+sfm/sfm_data_BA_ceres.cpp Bundle_Adjustment_Ceres::Adjust).
+
+Angle-axis + translation pose blocks, per-camera-model reprojection
+residuals, Huber loss with a = 4^2, masks that hold parts of the
+intrinsics, poses or structure constant, GPS pose-centre priors.  One
+flat observation table (pose id, intrinsic id, point id, pixel): residuals
+and the (O, 2, 6) pose, (O, 2, 8) intrinsic and (O, 2, 3) point Jacobian
+blocks come from one batched call, closed form for all-pinhole problems
+(cam_fast) and torch.func forward-mode otherwise.  The Schur complement is
+never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
+
+  camera side  sums over the pose / intrinsic slots go through kernel K2
+               (ops/seg_sum.py) on the card, with one plan per problem (the
+               slot ids are fixed across the LM loop)
+  point side   the point-major layout (build_pt_obs / point_major_layout):
+               each point's observations are contiguous R-slot rows, so a
+               point sum is a reshape-sum, the same order on every run
+
+The LM loop and the CG loop are host loops; each reads its stopping test
+from the device once per iteration.  The dtype is a parameter: the engine
+runs float32 on the card, the tests float64.  Small dense inverses use
+ops/linalg (no cuSOLVER).
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from openmvg_torch.geometry import so3
+from openmvg_torch.models import cameras as cm
+from openmvg_torch.ops import linalg
+from openmvg_torch.ops import seg_sum as k2
+from openmvg_torch.utils import hostmath
+
+# refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
+ADJUST_ALL = "ALL"
+ADJUST_NONE = "NONE"
+
+
+class PtObsTable(NamedTuple):
+    """Point-side reduction tables (see build_pt_obs).
+
+    rows None is the point-major layout: the observation table is laid out
+    in (L1, R) row-major blocks, row r owning obs slots [r R, (r + 1) R),
+    all of point row_point[r]; slack slots have obs_w = 0.  Otherwise rows
+    (L1, R) holds obs row ids padded with O (gather form).  groups (L, M)
+    folds rows back to points (padded with L1), or is None, and then a
+    segment sum over row_point does it."""
+
+    rows: torch.Tensor       # (L1, R) int64, or None => point-major layout
+    row_point: torch.Tensor  # (L1,) int64
+    groups: torch.Tensor     # (L, M) int64 or None
+
+
+class BAProblem(NamedTuple):
+    """Device-side BA problem; ids are dense, padding via obs_w = 0."""
+
+    obs_pose: torch.Tensor   # (O,)
+    obs_intr: torch.Tensor   # (O,)
+    obs_point: torch.Tensor  # (O,)
+    obs_x: torch.Tensor      # (O, 2)
+    obs_w: torch.Tensor      # (O,) 0/1 (or confidence)
+    rotvec: torch.Tensor     # (P, 3) axis-angle of world->cam R
+    t: torch.Tensor          # (P, 3) translation (x_c = R X + t)
+    intr_kind: torch.Tensor  # (I,)
+    intr_wh: torch.Tensor    # (I, 2)
+    intr_params: torch.Tensor  # (I, 8)
+    X: torch.Tensor          # (L, 3)
+    mask_pose: torch.Tensor  # (P, 6) 1 = free
+    mask_intr: torch.Tensor  # (I, 8)
+    mask_X: torch.Tensor     # (L,) 1 = free
+    prior_C: torch.Tensor    # (P, 3) GPS pose-centre priors
+    prior_w: torch.Tensor    # (P, 3) per-axis prior weights (0 = none)
+    pt_obs: PtObsTable = None
+    # K2 plans for obs_pose and obs_intr (with_plans); None on the CPU
+    seg_plans: tuple = None
+
+
+class BAConfig(NamedTuple):
+    huber_a: float = 16.0      # ceres HuberLoss(Square(4.0))
+    max_iterations: int = 50
+    cg_iterations: int = 60
+    cg_tol: float = 1e-2       # relative CG residual (inexact Newton)
+    lam_init: float = 1e-4
+    lam_up: float = 4.0
+    lam_down: float = 0.5
+    use_huber: bool = True
+    function_tolerance: float = 1e-6  # ceres Solver::Options default
+
+
+# ---------------------------------------------------------------------------
+# residuals / jacobians
+# ---------------------------------------------------------------------------
+
+def _residual_one(pose6, intr8, X, kind, wh, x_obs):
+    """Reprojection residual (..., 2), pure in all parameters; broadcasts
+    over rows."""
+    Xc = so3.rotate(pose6[..., :3], X) + pose6[..., 3:]
+    return cm.residual(kind, intr8, wh[..., 0], wh[..., 1], Xc, x_obs)
+
+
+def _prior_residual_one(pose6, prior_C, prior_w):
+    """GPS pose-centre residual sqrt(w) (C - prior), C = -R^T t = -rotate(-w, t)
+    (PoseCenterConstraintCostFunction, sfm_data_BA_ceres.cpp:453-473)."""
+    C = -so3.rotate(-pose6[..., :3], pose6[..., 3:])
+    return torch.sqrt(torch.clamp(prior_w, min=0.0)) * (C - prior_C)
+
+
+def _intr_rows(a, p):
+    """Per-obs rows of an intrinsic table; one shared row is broadcast."""
+    O = p.obs_pose.shape[0]
+    if a.shape[0] == 1:
+        return a[0].expand((O,) + a.shape[1:])
+    return a[p.obs_intr]
+
+
+def _gather_params(p: BAProblem):
+    pose6 = torch.cat([p.rotvec, p.t], -1)
+    return (pose6[p.obs_pose], _intr_rows(p.intr_params, p), _pt_expand(p.X, p),
+            _intr_rows(p.intr_kind, p), _intr_rows(p.intr_wh, p))
+
+
+def residuals(p: BAProblem, cam_fast=False):
+    if cam_fast:
+        return _fast_pinhole_project(p)[0]
+    g = _gather_params(p)
+    return _residual_one(*g, p.obs_x)
+
+
+def _fast_pinhole_project(p: BAProblem):
+    pose6 = torch.cat([p.rotvec, p.t], -1)[p.obs_pose]
+    intr = _intr_rows(p.intr_params, p)
+    X = _pt_expand(p.X, p)
+    w, t = pose6[:, :3], pose6[:, 3:]
+    Xc = so3.rotate(w, X) + t
+    zs = cm.clamp_depth(Xc[..., 2])
+    px = Xc[..., 0] / zs
+    py = Xc[..., 1] / zs
+    f = intr[:, 0]
+    r = torch.stack([f * px + intr[:, 1] - p.obs_x[:, 0],
+                     f * py + intr[:, 2] - p.obs_x[:, 1]], -1)
+    return r, w, X, zs, px, py, f
+
+
+def _fast_pinhole_r_J(p: BAProblem):
+    """Residuals and the (O,2,6) / (O,2,8) / (O,2,3) Jacobian blocks in
+    closed form, for problems whose every intrinsic is a plain PINHOLE."""
+    r, w, X, zs, px, py, f = _fast_pinhole_project(p)
+    invz = 1.0 / zs
+    z3 = torch.zeros_like(invz)
+    A0 = torch.stack([f * invz, z3, -f * px * invz], -1)   # d r / d Xc
+    A1 = torch.stack([z3, f * invz, -f * py * invz], -1)
+    JX0 = so3.rotate(-w, A0)                               # rows of A R
+    JX1 = so3.rotate(-w, A1)
+    Jx3 = torch.stack([JX0, JX1], -2)
+    th2 = (w * w).sum(-1)
+    small = th2 < 1e-8
+    th = torch.sqrt(torch.clamp(th2, min=1e-16))
+    b = torch.where(small, 0.5 - th2 / 24.0,
+                    (1.0 - torch.cos(th)) / torch.clamp(th2, min=1e-16))
+    c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
+                    (th - torch.sin(th)) / torch.clamp(th2 * th, min=1e-24))
+
+    def row_jw(JXk):
+        # d r / d w = -(A R) [X]_x Jr(w), row form via cross products
+        u = torch.cross(JXk, X, dim=-1)
+        uw = torch.cross(u, w, dim=-1)
+        return -(u - b[:, None] * uw + c[:, None] * torch.cross(uw, w, dim=-1))
+
+    Jp6 = torch.cat([torch.stack([row_jw(JX0), row_jw(JX1)], -2),
+                     torch.stack([A0, A1], -2)], -1)
+    O = r.shape[0]
+    zc = torch.zeros(O, dtype=r.dtype, device=r.device)
+    oc = torch.ones(O, dtype=r.dtype, device=r.device)
+    Ji8 = torch.cat([torch.stack([torch.stack([px, oc, zc], -1),
+                                  torch.stack([py, zc, oc], -1)], -2),
+                     torch.zeros((O, 2, p.intr_params.shape[1] - 3), dtype=r.dtype,
+                                 device=r.device)], -1)
+    return r, Jp6, Ji8, Jx3
+
+
+def _generic_r_J(p: BAProblem):
+    """Forward-mode Jacobians of _residual_one over every camera kind.
+    (torch.func promotes a float32 tangent through a 0-dim tensor and a
+    Python float to float64, so the blocks are cast back.)"""
+    from torch.func import jacfwd, vmap
+
+    g = _gather_params(p)
+    J = vmap(jacfwd(_residual_one, argnums=(0, 1, 2)))(*g, p.obs_x)
+    return (_residual_one(*g, p.obs_x),) + tuple(j.to(p.X.dtype) for j in J)
+
+
+def _huber_sqrt_weight(r, a, use_huber):
+    """sqrt of the IRLS weight of ceres HuberLoss(a): rho(s) = s for s <= a,
+    2 sqrt(a s) - a beyond; weight rho'(s) = 1 or sqrt(a / s)."""
+    if not use_huber:
+        return torch.ones_like(r[..., 0])
+    s = (r * r).sum(-1)
+    w = torch.where(s <= a, torch.ones_like(s), torch.sqrt(a / torch.clamp(s, min=1e-30)))
+    return torch.sqrt(w)
+
+
+def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False):
+    """0.5 * sum rho(|r|^2) over weighted observations, plus the priors."""
+    r = residuals(p, cam_fast)
+    s = (r * r).sum(-1)
+    if cfg.use_huber:
+        a = cfg.huber_a
+        rho = torch.where(s <= a, s, 2.0 * torch.sqrt(a * torch.clamp(s, min=0.0)) - a)
+    else:
+        rho = s
+    c = 0.5 * (rho * p.obs_w).sum()
+    rp = _prior_residual_one(torch.cat([p.rotvec, p.t], -1), p.prior_C, p.prior_w)
+    return c + 0.5 * (rp * rp).sum()
+
+
+def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
+    """Weighted residuals and Jacobian blocks with the masks applied."""
+    r, Jp6, Ji8, Jx3 = _fast_pinhole_r_J(p) if cam_fast else _generic_r_J(p)
+    w = _huber_sqrt_weight(r, cfg.huber_a, cfg.use_huber) * p.obs_w
+    r = r * w[:, None]
+    Jp6 = Jp6 * w[:, None, None] * p.mask_pose[p.obs_pose][:, None, :]
+    Ji8 = Ji8 * w[:, None, None] * p.mask_intr[p.obs_intr][:, None, :]
+    Jx3 = Jx3 * w[:, None, None] * _pt_expand(p.mask_X[:, None], p)[:, None, :]
+    return r, Jp6, Ji8, Jx3
+
+
+# ---------------------------------------------------------------------------
+# segment sums
+# ---------------------------------------------------------------------------
+
+def _seg_sum(vals, ids, num, plan=None):
+    """Segment sum over the first axis: kernel K2 on the card, its plain
+    version on the CPU; either way one fixed order of additions."""
+    O = vals.shape[0]
+    return k2.seg_sum(vals.reshape(O, -1), ids, num, plan).reshape((num,) + vals.shape[1:])
+
+
+def with_plans(p: BAProblem):
+    """The problem with K2 plans for its pose and intrinsic ids (built once
+    per problem on the card; the plain CPU path needs none)."""
+    if p.obs_pose.device.type != "cuda" or p.seg_plans is not None:
+        return p
+    return p._replace(seg_plans=(
+        k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
+        k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0])))
+
+
+def _plans(p):
+    return p.seg_plans if p.seg_plans is not None else (None, None)
+
+
+def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
+    """Host-side two-level tables (PtObsTable, gather form) for point-block
+    sums.  Row width R is chosen among 4..32 to minimise slots plus three
+    slot-equivalents per row, bounded by the 99th-percentile track length;
+    points with more observations span several rows.  Rows with obs_w == 0
+    are left out."""
+    obs_point = np.asarray(obs_point)
+    O = len(obs_point)
+    n_points = max(n_points, 1)
+    sel = np.nonzero(np.asarray(obs_w) != 0)[0]
+    if len(sel) == 0:
+        rows = np.full((n_points, 2), O, np.int64)
+        groups = np.arange(n_points, dtype=np.int64)[:, None]
+        return PtObsTable(rows=rows, row_point=groups[:, 0], groups=groups)
+    ids = obs_point[sel]
+    counts = np.bincount(ids, minlength=n_points)
+    nz = counts[counts > 0]
+    p99 = int(np.percentile(nz, 99))
+    r_hi = 1 << max(2, (max(p99, 1) - 1).bit_length())
+    r_hi = min(r_hi, 1 << (int(counts.max()) - 1).bit_length())
+    R, best = r_hi, None
+    for cand in (4, 8, 16, 32):
+        if cand > r_hi:
+            break
+        rows_c = int(np.sum(-(-counts // cand)) + np.sum(counts == 0))
+        cost = rows_c * cand + 3 * rows_c
+        if best is None or cost < best:
+            R, best = cand, cost
+    nrow = np.maximum((counts + R - 1) // R, 1)  # every point owns >= 1 row
+    M = int(nrow.max())
+    L1 = int(nrow.sum())
+    row_start = np.zeros(n_points + 1, np.int64)
+    np.cumsum(nrow, out=row_start[1:])
+    order = np.argsort(ids, kind="stable")
+    starts = np.zeros(n_points + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rank = np.arange(len(sel)) - starts[ids[order]]
+    rows = np.full((L1, R), O, np.int64)
+    rows[row_start[ids[order]] + rank // R, rank % R] = sel[order]
+    row_point = np.repeat(np.arange(n_points, dtype=np.int64), nrow)
+    Mp = 1 << max(0, (M - 1).bit_length())
+    if n_points * Mp <= group_budget_elems:
+        col = np.arange(Mp, dtype=np.int64)[None, :]
+        groups = np.where(col < nrow[:, None], row_start[:n_points, None] + col, L1)
+    else:
+        groups = None
+    return PtObsTable(rows=rows, row_point=row_point, groups=groups)
+
+
+def point_major_layout(obs_pose, obs_intr, obs_point, obs_x, obs_w, n_points):
+    """Host-side: reorder the observation table into the point-major
+    layout, with no rows beyond those the points need (the slack slots of
+    each row get obs_w = 0).  Returns the relaid (obs_pose, obs_intr,
+    obs_point, obs_x, obs_w, PtObsTable)."""
+    t = build_pt_obs(obs_point, obs_w, n_points)
+    perm = t.rows.reshape(-1)
+
+    def lay(a):
+        a = np.asarray(a)
+        return np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)])[perm]
+
+    table = PtObsTable(rows=None, row_point=t.row_point, groups=t.groups)
+    return (lay(obs_pose), lay(obs_intr), lay(obs_point), lay(obs_x), lay(obs_w), table)
+
+
+def _pt_seg_sum(vals, p: BAProblem, num):
+    """Point-block segment sum: a reshape-sum in the point-major layout or
+    a gather and dense sum with a gather table, then the rows folded into
+    points through the group table, or through K2 where the group table
+    was over its budget."""
+    t = p.pt_obs
+    if t is None:
+        return _seg_sum(vals, p.obs_point, num)
+    if t.rows is None:
+        L1 = t.row_point.shape[0]
+        R = vals.shape[0] // L1
+        row_sums = vals.reshape((L1, R) + vals.shape[1:]).sum(1)
+    else:
+        padded = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])], 0)
+        row_sums = padded[t.rows].sum(1)
+    if row_sums.shape[0] == num and t.groups is not None and t.groups.shape[1] == 1:
+        return row_sums  # one row per point: level 2 is the identity
+    if t.groups is None:
+        return _seg_sum(row_sums, t.row_point, num)
+    rs = torch.cat([row_sums, row_sums.new_zeros((1,) + row_sums.shape[1:])], 0)
+    return rs[t.groups].sum(1)
+
+
+def _pt_expand(y, p: BAProblem):
+    """Per-point rows (L, k) -> per-obs rows (O, k); point-major problems
+    broadcast one gathered row over each row's R slots."""
+    t = p.pt_obs
+    if t is not None and t.rows is None:
+        O = p.obs_point.shape[0]
+        L1 = t.row_point.shape[0]
+        R = O // L1
+        yr = y[torch.clamp(t.row_point, max=y.shape[0] - 1)]
+        return yr[:, None].expand((L1, R) + y.shape[1:]).reshape((O,) + y.shape[1:])
+    return y[p.obs_point]
+
+
+def _outer_flat(J):
+    O, _, k = J.shape
+    return (J[:, :, :, None] * J[:, :, None, :]).sum(1).reshape(O, k * k)
+
+
+def _block_outer_pt(J, p: BAProblem, num):
+    k = J.shape[-1]
+    return _pt_seg_sum(_outer_flat(J), p, num).reshape(num, k, k)
+
+
+def _block_outer_seg(J, ids, num, plan=None):
+    """Segment sum of the J_o^T J_o blocks, on an (O, k*k) flat view."""
+    k = J.shape[-1]
+    return _seg_sum(_outer_flat(J), ids, num, plan).reshape(num, k, k)
+
+
+def _bmatvec(J, v):
+    """(O, 2, k) x (O, k) -> (O, 2)."""
+    return (J * v[:, None, :]).sum(-1)
+
+
+def _brmatvec(J, u):
+    """(O, 2, k) x (O, 2) -> (O, k)."""
+    return (J * u[:, :, None]).sum(1)
+
+
+def _inv_sym3(A):
+    """Explicit adjugate inverse of (N, 3, 3) SPD blocks (the LM-damped
+    point blocks), formed once per solve so that every apply of Hpp^-1 is
+    one batched product instead of re-deriving the cofactors."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    tiny = torch.full_like(det, 1e-30)
+    det = torch.where(det.abs() < 1e-30, torch.where(det < 0, -tiny, tiny), det)
+    rows = torch.stack([torch.stack([c00, c01, c02], -1), torch.stack([c01, c11, c12], -1),
+                        torch.stack([c02, c12, c22], -1)], -2)
+    return rows / det[..., None, None]
+
+
+def _camera_matvec(vc_pose, vc_intr, p, Jp6, Ji8):
+    """u_o = Jc_o v for the camera half: (O, 2)."""
+    return _bmatvec(Jp6, vc_pose[p.obs_pose]) + _bmatvec(Ji8, _intr_rows(vc_intr, p))
+
+
+def _camera_rmatvec(u, p, Jp6, Ji8, n_pose, n_intr):
+    """Jc^T u reduced into (P, 6) and (I, 8) through K2."""
+    plan_p, plan_i = _plans(p)
+    return (_seg_sum(_brmatvec(Jp6, u), p.obs_pose, n_pose, plan_p),
+            _seg_sum(_brmatvec(Ji8, u), p.obs_intr, n_intr, plan_i))
+
+
+def _prior_blocks(p):
+    """Per-pose prior Jacobian (P, 3, 6) and residual (P, 3)."""
+    from torch.func import jacfwd, vmap
+
+    pose6 = torch.cat([p.rotvec, p.t], -1)
+    J = vmap(jacfwd(_prior_residual_one))(pose6, p.prior_C, p.prior_w).to(pose6.dtype)
+    return J * p.mask_pose[:, None, :], _prior_residual_one(pose6, p.prior_C, p.prior_w)
+
+
+def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
+    """One damped normal-equation solve.  Returns (d_pose (P, 6), d_intr
+    (I, 8), d_X (L, 3), predicted gain)."""
+    n_pose = p.rotvec.shape[0]
+    n_intr = p.intr_params.shape[0]
+    n_pts = p.X.shape[0]
+    plan_p, plan_i = _plans(p)
+    dt, dev = p.X.dtype, p.X.device
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+
+    # point blocks Hpp = sum Jx^T Jx + lam diag; fixed/padded points get
+    # an identity block (zero rhs -> zero update)
+    Hpp = _block_outer_pt(Jx3, p, n_pts)
+    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp = Hpp + lam * torch.clamp(dpp, min=1e-12)[..., None] * eye3
+    Hpp = Hpp + ((1.0 - p.mask_X) + 1e-12)[:, None, None] * eye3
+
+    gp, gi = _camera_rmatvec(-r, p, Jp6, Ji8, n_pose, n_intr)
+    gx = _pt_seg_sum(_brmatvec(Jx3, -r), p, n_pts)
+
+    Jprior, rprior = _prior_blocks(p)
+    Hprior = torch.einsum("pij,pik->pjk", Jprior, Jprior)
+    gprior = -torch.einsum("pij,pi->pj", Jprior, rprior)
+
+    Hcc_p = _block_outer_seg(Jp6, p.obs_pose, n_pose, plan_p) + Hprior
+    Hcc_i = _block_outer_seg(Ji8, p.obs_intr, n_intr, plan_i)
+    dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
+    dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
+
+    Hpp_inv = _inv_sym3(Hpp)
+
+    def Hpp_solve(v):
+        return torch.einsum("lij,lj->li", Hpp_inv, v)
+
+    # reduced rhs b = gc - E Hpp^-1 gx, E v = Jc^T (Jx v)
+    z = _bmatvec(Jx3, _pt_expand(Hpp_solve(gx), p))
+    bp, bi = _camera_rmatvec(z, p, Jp6, Ji8, n_pose, n_intr)
+    bp = gp + gprior - bp
+    bi = gi - bi
+
+    # fixed parameters: zero J columns, unit diagonal (solves stay regular,
+    # updates stay zero)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    eye8 = torch.eye(8, dtype=dt, device=dev)
+    fp, fi = p.mask_pose, p.mask_intr
+    Mp = Hcc_p + lam * dcc_p[..., None] * eye6
+    Mi = Hcc_i + lam * dcc_i[..., None] * eye8
+    Mp = Mp * (fp[:, :, None] * fp[:, None, :]) + eye6 * (1.0 - fp)[:, :, None]
+    Mi = Mi * (fi[:, :, None] * fi[:, None, :]) + eye8 * (1.0 - fi)[:, :, None]
+    Mp_inv = linalg.inv(Mp)
+    Mi_inv = linalg.inv(Mi)
+
+    def S_matvec(vp, vi):
+        """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
+        u = _camera_matvec(vp, vi, p, Jp6, Ji8)
+        y = Hpp_solve(_pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
+        sp, si = _camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p, Jp6, Ji8,
+                                 n_pose, n_intr)
+        sp = sp + torch.einsum("pij,pj->pi", Hprior, vp) + lam * dcc_p * vp
+        si = si + lam * dcc_i * vi
+        return sp, si
+
+    def M_inv(vp, vi):
+        return (torch.einsum("pij,pj->pi", Mp_inv, vp),
+                torch.einsum("pij,pj->pi", Mi_inv, vi))
+
+    def dot(a, c):
+        return (a[0] * c[0]).sum() + (a[1] * c[1]).sum()
+
+    # PCG on the reduced camera system, stopped at ||r|| <= cg_tol ||b||
+    b = (bp, bi)
+    x = (torch.zeros_like(bp), torch.zeros_like(bi))
+    rr = b
+    zz = M_inv(*rr)
+    pp = zz
+    rz = dot(rr, zz)
+    tol2 = cfg.cg_tol ** 2 * dot(b, b)
+    for _ in range(cfg.cg_iterations):
+        if not bool(dot(rr, rr) > tol2):
+            break
+        Ap = S_matvec(*pp)
+        denom = dot(pp, Ap)
+        alpha = rz / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
+        x = (x[0] + alpha * pp[0], x[1] + alpha * pp[1])
+        rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+        zz = M_inv(*rr)
+        rz_new = dot(rr, zz)
+        beta = rz_new / torch.where(rz.abs() < 1e-30, torch.full_like(rz, 1e-30), rz)
+        pp = (zz[0] + beta * pp[0], zz[1] + beta * pp[1])
+        rz = rz_new
+    d_pose = x[0] * p.mask_pose
+    d_intr = x[1] * p.mask_intr
+
+    # back-substitute points: d_X = Hpp^-1 (gx - E^T dc)
+    u = _camera_matvec(d_pose, d_intr, p, Jp6, Ji8)
+    w = _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts)
+    d_X = Hpp_solve(gx - w) * p.mask_X[:, None]
+
+    # predicted gain 0.5 d^T (lam D d + g)
+    gain = 0.5 * ((d_pose * (lam * dcc_p * d_pose + gp)).sum()
+                  + (d_intr * (lam * dcc_i * d_intr + gi)).sum()
+                  + (d_X * (lam * torch.clamp(dpp, min=1e-12) * d_X + gx)).sum())
+    return d_pose, d_intr, d_X, gain
+
+
+def _apply_step(p: BAProblem, d_pose, d_intr, d_X):
+    return p._replace(rotvec=p.rotvec + d_pose[:, :3], t=p.t + d_pose[:, 3:],
+                      intr_params=p.intr_params + d_intr, X=p.X + d_X)
+
+
+def cam_fast_ok(p: BAProblem):
+    """True when every intrinsic row is a plain PINHOLE."""
+    kinds = p.intr_kind
+    return kinds.numel() > 0 and bool((kinds == cm.PINHOLE).all())
+
+
+def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None):
+    """One LM iteration: solve, tentative step, accept/reject, adapt lam.
+    Returns (problem, lam, cost, accepted) with tensor lam/cost/accepted."""
+    if cam_fast is None:
+        cam_fast = cam_fast_ok(p)
+    p = with_plans(p)
+    lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
+    cost0 = robust_cost(p, cfg, cam_fast)
+    r, Jp6, Ji8, Jx3 = jacobians(p, cfg, cam_fast)
+    d_pose, d_intr, d_X, _ = schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg)
+    p_new = _apply_step(p, d_pose, d_intr, d_X)
+    cost1 = robust_cost(p_new, cfg, cam_fast)
+    accept = cost1 < cost0
+    sel = {f: torch.where(accept, getattr(p_new, f), getattr(p, f))
+           for f in ("rotvec", "t", "intr_params", "X")}
+    lam_new = torch.where(accept, lam * cfg.lam_down, lam * cfg.lam_up)
+    return p._replace(**sel), lam_new, torch.where(accept, cost1, cost0), accept
+
+
+def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False):
+    """Full LM loop: at most max_iterations steps, stopped once an accepted
+    step improves the cost by at most function_tolerance (relative) or lam
+    exceeds 1e10.  Returns (problem, final cost, accepted step count)."""
+    cam_fast = cam_fast_ok(p)
+    p = with_plans(p)
+    lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
+    cost = float(robust_cost(p, cfg, cam_fast))
+    n_acc = 0
+    for it in range(cfg.max_iterations):
+        p, lam, new_cost, accept = lm_step(p, lam, cfg, cam_fast)
+        new_cost, accept, lam_f = float(new_cost), bool(accept), float(lam)
+        n_acc += int(accept)
+        if verbose:
+            print(f"  LM it={it} cost={new_cost:.6g} lam={lam_f:.3g} accept={accept}")
+        converged = accept and cost - new_cost <= cfg.function_tolerance * max(cost, 1e-30)
+        cost = new_cost
+        if converged or lam_f > 1e10:
+            break
+    return p, cost, n_acc
+
+
+# ---------------------------------------------------------------------------
+# scene <-> problem
+# ---------------------------------------------------------------------------
+
+def problem_from_reference(fields, dtype=torch.float64, device="cpu"):
+    """BAProblem fields as numpy arrays -> the port's BAProblem (ids int64,
+    the rest `dtype`).  `pt_obs` is None, a (rows, row_point, groups) tuple
+    or a dict of them.  The reference's BAProblem fields, converted with
+    np.asarray, feed one problem to both packages."""
+    ints = ("obs_pose", "obs_intr", "obs_point", "intr_kind")
+    out = {}
+    for f in BAProblem._fields[:16]:
+        a = np.asarray(fields[f])
+        t = torch.as_tensor(a.astype(np.int64) if f in ints else a.astype(np.float64),
+                            device=device)
+        out[f] = t if f in ints else t.to(dtype)
+    t = fields.get("pt_obs")
+    if t is not None:
+        rows, row_point, groups = (t[k] for k in ("rows", "row_point", "groups")) \
+            if isinstance(t, dict) else t
+
+        def it(a):
+            return None if a is None else torch.as_tensor(np.asarray(a, np.int64),
+                                                          device=device)
+
+        out["pt_obs"] = PtObsTable(rows=it(rows), row_point=it(row_point), groups=it(groups))
+    return BAProblem(**out)
+
+
+def problem_from_scene(scene, refine_rotation=True, refine_translation=True,
+                       refine_intrinsics=ADJUST_NONE, refine_structure=True,
+                       dtype=torch.float32, device="cpu", use_gps_priors=False,
+                       use_control_points=True):
+    """Build a BAProblem from a Scene (Optimize_Options parity).
+
+    refine_intrinsics: ADJUST_NONE | ADJUST_ALL | iterable of column ids.
+    Pose/intrinsic/landmark ids are compacted to the used subsets; returns
+    (problem, index_maps) with the original ids in the maps.  The
+    observations take the point-major layout with no padding beyond it
+    (the reference pads to powers of two only to spare XLA recompiles)."""
+    info = scene.obs_arrays_for_ba()
+    n_cp = len(scene.cp_X) if use_control_points else 0
+    if n_cp:
+        cp_pid = scene.view_pose[scene.cp_obs_view]
+        cp_ok = (cp_pid >= 0) & scene.pose_valid[np.clip(cp_pid, 0, max(scene.n_poses - 1, 0))]
+        info = dict(
+            obs_idx=info["obs_idx"],
+            pose_id=np.concatenate([info["pose_id"], cp_pid[cp_ok]]),
+            intr_id=np.concatenate([info["intr_id"],
+                                    scene.view_intrinsic[scene.cp_obs_view[cp_ok]]]),
+            landmark_id=np.concatenate([info["landmark_id"],
+                                        len(scene.X_valid) + scene.cp_obs_landmark[cp_ok]]),
+            x=np.concatenate([info["x"], scene.cp_obs_x[cp_ok]]))
+    pose_ids = np.unique(info["pose_id"])
+    intr_ids = np.unique(info["intr_id"])
+    point_ids = np.unique(info["landmark_id"])
+
+    def compact(ids, uniq):
+        return np.searchsorted(uniq, ids).astype(np.int64) if len(ids) else np.zeros(0, np.int64)
+
+    obs_pose = compact(info["pose_id"], pose_ids)
+    obs_intr = compact(info["intr_id"], intr_ids)
+    obs_point = compact(info["landmark_id"], point_ids)
+    R = scene.pose_R[pose_ids]
+    rotvec = hostmath.logmap_np(R)
+    t = -np.einsum("nij,nj->ni", R, scene.pose_C[pose_ids])
+
+    mask_pose = np.zeros((len(pose_ids), 6))
+    if refine_rotation:
+        mask_pose[:, :3] = 1.0
+    if refine_translation:
+        mask_pose[:, 3:] = 1.0
+    mask_intr = np.zeros((len(intr_ids), 8))
+    kinds = np.asarray(scene.cameras.kind)[intr_ids]
+    if refine_intrinsics == ADJUST_ALL:
+        for i, k in enumerate(kinds):
+            mask_intr[i, :cm.N_PARAMS[int(k)]] = 1.0
+    elif refine_intrinsics != ADJUST_NONE:
+        for col in refine_intrinsics:
+            mask_intr[:, col] = 1.0
+        for i, k in enumerate(kinds):
+            mask_intr[i, cm.N_PARAMS[int(k)]:] = 0.0
+
+    n_obs, n_pose, n_pts = len(obs_pose), len(pose_ids), len(point_ids)
+    obs_pose, obs_intr, obs_point, obs_x, obs_w, pt_table = point_major_layout(
+        obs_pose, obs_intr, obs_point, np.asarray(info["x"], np.float64), np.ones(n_obs),
+        n_pts)
+    X_all = np.concatenate([scene.X, scene.cp_X]) if n_cp else scene.X
+    mask_vals = np.full(n_pts, 1.0 if refine_structure else 0.0)
+    if n_cp:
+        mask_vals[point_ids >= len(scene.X_valid)] = 0.0  # GCPs stay fixed
+    prior_C = np.zeros((n_pose, 3))
+    prior_w = np.zeros((n_pose, 3))
+    if use_gps_priors and scene.prior_center is not None:
+        pm = {int(v): i for i, v in enumerate(pose_ids)}
+        for v in range(scene.n_views):
+            w = scene.prior_center_weight[v]
+            pid = int(scene.view_pose[v])
+            if np.any(w > 0) and pid in pm:
+                prior_C[pm[pid]] = scene.prior_center[v]
+                prior_w[pm[pid]] = w
+    cams = scene.cameras
+    fields = dict(obs_pose=obs_pose, obs_intr=obs_intr, obs_point=obs_point,
+                  obs_x=obs_x, obs_w=obs_w, rotvec=rotvec, t=t,
+                  intr_kind=np.asarray(cams.kind)[intr_ids],
+                  intr_wh=np.stack([np.asarray(cams.width)[intr_ids],
+                                    np.asarray(cams.height)[intr_ids]], -1),
+                  intr_params=np.asarray(cams.params)[intr_ids], X=X_all[point_ids],
+                  mask_pose=mask_pose, mask_intr=mask_intr, mask_X=mask_vals,
+                  prior_C=prior_C, prior_w=prior_w, pt_obs=pt_table)
+    return problem_from_reference(fields, dtype, device), dict(
+        pose_ids=pose_ids, intr_ids=intr_ids, point_ids=point_ids,
+        n_scene_points=len(scene.X_valid))
+
+
+def scene_from_problem(scene, p: BAProblem, maps):
+    """Write the optimised parameters back into the Scene (in place); rows
+    beyond the index maps (a padded problem taken from the reference's)
+    are ignored."""
+    nP = len(maps["pose_ids"])
+    nL = len(maps["point_ids"])
+    R = hostmath.expmap_np(p.rotvec[:nP].cpu().double().numpy())
+    t = p.t[:nP].cpu().double().numpy()
+    scene.pose_R[maps["pose_ids"]] = R
+    scene.pose_C[maps["pose_ids"]] = -np.einsum("nji,nj->ni", R, t)
+    newp = np.asarray(scene.cameras.params).copy()
+    newp[maps["intr_ids"]] = p.intr_params[:len(maps["intr_ids"])].cpu().double().numpy()
+    scene.cameras = scene.cameras._replace(params=newp)
+    pids = maps["point_ids"]
+    Xout = p.X[:nL].cpu().double().numpy()
+    n_scene = maps.get("n_scene_points")
+    keep = pids < n_scene if n_scene is not None else np.ones(len(pids), bool)
+    scene.X[pids[keep]] = Xout[keep]
+    return scene

@@ -1,5 +1,5 @@
 """The Scene record — openMVG's SfM_Data as dense host arrays
-(counterpart: openmvg_tpu/sfm/scene.py, the record only).
+(counterpart: openmvg_tpu/sfm/scene.py).
 
 Views, intrinsics and poses are struct-of-arrays keyed by dense ids with
 validity masks; observations are one flat table.  Host side it is numpy;
@@ -12,6 +12,7 @@ from typing import List, Optional
 import numpy as np
 
 from openmvg_torch.models import cameras as cm
+from openmvg_torch.utils import hostmath
 
 
 def _empty_cameras():
@@ -60,3 +61,81 @@ class Scene:
     @property
     def n_poses(self):
         return len(self.pose_valid)
+
+    @property
+    def n_landmarks(self):
+        return int(np.sum(self.X_valid))
+
+    @property
+    def n_observations(self):
+        return int(np.sum(self.obs_valid))
+
+    def valid_view_poses(self):
+        """View ids whose pose is estimated."""
+        pid = self.view_pose
+        ok = (pid >= 0) & (pid < self.n_poses)
+        out = np.zeros(self.n_views, bool)
+        out[ok] = self.pose_valid[pid[ok]]
+        return np.nonzero(out)[0]
+
+    def obs_arrays_for_ba(self):
+        """Per-observation (pose id, intrinsic id, landmark id, pixel) of the
+        valid observations on valid poses and landmarks."""
+        ok = self.obs_valid.copy()
+        pid = self.view_pose[self.obs_view]
+        ok &= self.pose_valid[np.clip(pid, 0, max(self.n_poses - 1, 0))] & (pid >= 0)
+        ok &= self.X_valid[self.obs_landmark]
+        sel = np.nonzero(ok)[0]
+        return dict(obs_idx=sel, pose_id=pid[sel],
+                    intr_id=self.view_intrinsic[self.obs_view[sel]],
+                    landmark_id=self.obs_landmark[sel], x=self.obs_x[sel])
+
+
+def group_shared_intrinsics(scene: Scene):
+    """Merge identical intrinsics and remap the views
+    (sfm_data_utils.cpp GroupSharedIntrinsics)."""
+    cams = scene.cameras
+    keys = {}
+    remap = np.zeros(scene.n_intrinsics, np.int32)
+    kept = []
+    for i in range(scene.n_intrinsics):
+        key = (int(cams.kind[i]), float(cams.width[i]), float(cams.height[i]),
+               tuple(np.round(np.asarray(cams.params)[i], 12)))
+        if key not in keys:
+            keys[key] = len(kept)
+            kept.append(i)
+        remap[i] = keys[key]
+    if len(kept) == scene.n_intrinsics:
+        return scene
+    scene.cameras = cm.Cameras(kind=np.asarray(cams.kind)[kept],
+                               width=np.asarray(cams.width)[kept],
+                               height=np.asarray(cams.height)[kept],
+                               params=np.asarray(cams.params)[kept])
+    ok = scene.view_intrinsic >= 0
+    scene.view_intrinsic[ok] = remap[scene.view_intrinsic[ok]]
+    return scene
+
+
+def reprojection_residuals(scene: Scene):
+    """Residuals (M, 2) of every valid observation, in float64 on the host,
+    and the obs_arrays_for_ba info they belong to."""
+    info = scene.obs_arrays_for_ba()
+    if len(info["obs_idx"]) == 0:
+        return np.zeros((0, 2)), info
+    R = scene.pose_R[info["pose_id"]]
+    C = scene.pose_C[info["pose_id"]]
+    Xc = np.einsum("nij,nj->ni", R, scene.X[info["landmark_id"]] - C)
+    cams = scene.cameras
+    iid = info["intr_id"]
+    proj = hostmath.project_cam_np(np.asarray(cams.kind)[iid], np.asarray(cams.params)[iid],
+                                   np.asarray(cams.width)[iid], np.asarray(cams.height)[iid],
+                                   Xc)
+    return proj - info["x"], info
+
+
+def rmse(scene: Scene):
+    """Root-mean-square reprojection error over the valid observations."""
+    r, _ = reprojection_residuals(scene)
+    if len(r) == 0:
+        return float("inf")
+    return float(np.sqrt(np.mean(np.sum(r * r, axis=1))))

@@ -1,0 +1,69 @@
+"""Build-at-first-use for the port's native code.
+
+The CUDA kernels (csrc/*.cu, nvcc for sm_90a) and the host library
+(csrc/native.cpp, g++ with OpenMP) are compiled into the git-ignored
+openmvg_torch/_build/ the first time they are needed, named by a hash of
+the source and the flags, and loaded with ctypes.  A failed build raises;
+nothing falls back.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
+
+
+def nvcc():
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built from "
+                       "openmvg_torch/csrc/*.cu on a machine with the CUDA toolkit")
+
+
+def gxx():
+    cand = shutil.which("g++") or shutil.which("c++")
+    if cand is None:
+        raise RuntimeError("g++ not found: openmvg_torch/csrc/native.cpp needs a "
+                           "C++ compiler with OpenMP")
+    return cand
+
+
+def build_shared(source, compiler, flags):
+    """Compile `source` (a file name under csrc/) into a shared library in
+    _build/ unless one of the same source and flags is there; returns
+    (ctypes.CDLL, compiler log or "" when it was already built)."""
+    path = os.path.join(CSRC, source)
+    with open(path, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    stem = os.path.splitext(source)[0]
+    so = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
+    log = ""
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            r = subprocess.run([compiler, *flags, "-o", tmp, path],
+                               capture_output=True, text=True)
+            log = r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                                   f"{path}:\n{log}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return ctypes.CDLL(so), log
