@@ -9,9 +9,9 @@ last line is printed):
   device    a CUDA card is present; prints nvidia-smi's name and power limit
   build     builds every kernel of the path from the sources in this
             checkout (K1: openmvg_torch/csrc/two_nn.cu, K2:
-            openmvg_torch/csrc/seg_sum.cu) and the host library of the f64
-            polish (openmvg_torch/csrc/native.cpp), one compiler each, in
-            parallel
+            openmvg_torch/csrc/seg_sum.cu, K3: openmvg_torch/csrc/smatvec.cu)
+            and the host library of the f64 polish
+            (openmvg_torch/csrc/native.cpp), one compiler each, in parallel
   kernel    holds K1 against its plain PyTorch version on the card: exact
             equality for uint8 (16 pairs of 4096x4096x128, ragged counts
             with valid_b masking, planted ties and duplicate rows), a stated
@@ -24,7 +24,13 @@ last line is printed):
             of range, segments without rows, one segment holding every row):
             float32 within 1e-5 (1 + S), float64 within 1e-12 (1 + S), S the
             segment's sum of |values| (seg_sum_check), and two launches on
-            one input bitwise equal
+            one input bitwise equal.  Holds K3 against its plain version
+            (P in {1, 100, 1500}, I in {1, 8}, R in {4, 8, 16, 32}, points
+            over several rows, zero padding slots, sentinel group entries,
+            one point holding every observation, a pose without one):
+            float32 within 1e-5 (1 + S) of the plain version in float64, S
+            the output's sum of magnitudes (smatvec_magnitudes), and two
+            launches bitwise equal
   pipeline  renders the textured-sphere dataset (100 views of 1024^2, the
             repo's realistic scale) on the card and runs the port's CLI
             init -> features (HIGH) -> pairs (CONTIGUOUS 6) -> matches ->
@@ -42,14 +48,27 @@ last line is printed):
             and requires >= 98 of 100 poses, eval position_rmse <= 0.006
             (0.2% of the 3.0 ring radius), reprojection rmse < 1 px, K2
             launched, >= 1 accepted polish step and one colour per landmark
-            in colorized.ply; then runs the sfm stage once more under
-            torch.profiler in a fresh process (device busy share, heaviest
-            device ops) and reports whether it wrote the same sfm_data.json
+            in colorized.ply; the fused S-matvec (K3) is off, as by
+            default, and must not launch.  (Its profiled re-run was
+            dropped to keep the whole run near half the time limit; the
+            global phase profiles its own sfm stage.)
+  global    with OMT_FUSED_SMATVEC=1 (this phase and its profiled re-run
+            only): filter -g e on the pipeline's putative matches, sfm -s
+            GLOBAL, color and eval on cuda, every kernel's count set to 0
+            just before and read just after; prints the share of pairs the
+            essential filter kept and the engine's stage seconds, holds the
+            sfm phase's gates with K2 and K3 both launched, and re-runs the
+            sfm stage under torch.profiler in a fresh process (device busy
+            share, heaviest device ops) and reports whether it wrote the
+            same sfm_data.json
   measure   K1 on the matches stage's own descriptor stack and pair list,
             K2 on the final bundle adjustment's pose ids with its own (O, 6)
-            J^T r and (O, 36) J^T J payloads: equality with the plain
-            version, kernel / plain / yardstick times and the bound, for the
-            kernels line
+            J^T r and (O, 36) J^T J payloads, K3 on the final GLOBAL bundle
+            adjustment's Jacobians, point blocks and tables with a random
+            v (beside the unfused matvec it replaces, and the launch count
+            of one damped solve each way): equality with the plain version,
+            kernel / plain / yardstick times and the bound, for the kernels
+            line
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
@@ -547,9 +566,99 @@ def phase_kernel_k2(seg_sum, dev):
     return errs
 
 
-def phase_sfm(kernel_mods, run, n_views):
-    """sfm -> color -> eval on the card, with every kernel's count set to 0
-    just before and read just after, and the gates of the module note."""
+def k3_case(g, P, I, R, L, max_obs, one_point):
+    """A point-major layout (sfm/ba.py::point_major_layout): point l has
+    1..max_obs observations (every point max_obs when one_point) in
+    ceil(n / R) rows of R slots; slack slots carry zero Jacobians and pose
+    0; group entries past a point's rows are the sentinel L1; pose P // 2
+    has no observation when P > 1.  Returns the smatvec arguments on the
+    CPU."""
+    import torch
+
+    n = torch.full((L,), max_obs) if one_point else torch.randint(1, max_obs + 1, (L,),
+                                                                  generator=g)
+    nrow = (n + R - 1) // R
+    L1, M = int(nrow.sum()), int(nrow.max())
+    start = torch.cumsum(nrow, 0) - nrow
+    row_point = torch.repeat_interleave(torch.arange(L), nrow)
+    col = torch.arange(M)[None, :]
+    groups = torch.where(col < nrow[:, None], start[:, None] + col, L1)
+    O = L1 * R
+    slot = torch.arange(O)
+    row = slot // R
+    used = (row - start[row_point[row]]) * R + slot % R < n[row_point[row]]
+    pose = torch.randint(0, P, (O,), generator=g)
+    if P > 1:
+        pose[pose == P // 2] = (P // 2 + 1) % P
+    pose[~used] = 0
+    intr = torch.where(used, torch.randint(0, I, (O,), generator=g), 0)
+    w = used.float()[:, None, None]
+    A = torch.randn((L, 3, 3), generator=g, dtype=torch.float64)
+    hinv = torch.linalg.inv(A @ A.transpose(-1, -2) + 3 * torch.eye(3, dtype=torch.float64))
+    i32 = torch.int32
+    return [torch.randn((O, 2, 6), generator=g) * w, torch.randn((O, 2, 8), generator=g) * w,
+            torch.randn((O, 2, 3), generator=g) * w, pose.to(i32), intr.to(i32),
+            torch.randn((P, 6), generator=g), torch.randn((I, 8), generator=g),
+            hinv.float(), row_point.to(i32), groups.to(i32)]
+
+
+def smatvec_check(smatvec, got, args):
+    """|got - ref| <= 1e-5 (1 + S) elementwise for both halves, ref the
+    plain version on the same inputs in float64 and S the sum of
+    magnitudes behind each output (smatvec_magnitudes).  Returns the
+    largest |got - ref|, or None when outside."""
+    d = [a.double() if a.is_floating_point() else a for a in args]
+    ref = smatvec.smatvec_plain(*d)
+    mag = smatvec.smatvec_magnitudes(*d)
+    worst = 0.0
+    for x, r, m in zip(got, ref, mag):
+        err = (x.double() - r).abs()
+        if not bool((err <= 1e-5 * (1 + m)).all()):
+            return None
+        worst = max(worst, err.max().item() if err.numel() else 0.0)
+    return worst
+
+
+def phase_kernel_k3(smatvec, dev):
+    """K3 against its plain version (smatvec_check) and bitwise repeatable."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    log("[kernel] smatvec: kernel vs plain on the card")
+    cases = [("P1 I1 R4", 1, 1, 4, 3000, 6, False),
+             ("P100 I1 R8, points over several rows", 100, 1, 8, 20000, 40, False),
+             ("P100 I8 R16", 100, 8, 16, 8000, 50, False),
+             ("P1500 I8 R32", 1500, 8, 32, 20000, 70, False),
+             ("P1500 I1 R4", 1500, 1, 4, 30000, 12, False),
+             ("P100 I1 R4, one point holds every observation", 100, 1, 4, 1, 40000, True)]
+    worst = 0.0
+    for name, P, I, R, L, max_obs, one in cases:
+        args = [a.to(dev) for a in k3_case(g, P, I, R, L, max_obs, one)]
+        got = smatvec.smatvec(*args)
+        again = smatvec.smatvec(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"smatvec {name}: two launches differ")
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            fail(f"smatvec {name}: non-finite output")
+        if P > 1 and not bool((got[0][P // 2] == 0).all()):
+            fail(f"smatvec {name}: the pose without observations got a value")
+        err = smatvec_check(smatvec, got, args)
+        if err is None:
+            fail(f"smatvec {name}: outside 1e-5 (1 + S)")
+        worst = max(worst, err)
+        log(f"[kernel] smatvec {name}: O {args[0].shape[0]}, max |err| {err:.3g}")
+    log(f"[kernel] smatvec float32: {len(cases)} cases within 1e-5 (1 + S), max |err| "
+        f"{worst:.3g}; two launches bitwise equal in every case")
+    return worst
+
+
+def phase_sfm(kernel_mods, run, n_views, engine="INCREMENTAL", matches="matches.f.bin",
+              pre=(), need=("seg_sum",), recon_name="recon", profile=True):
+    """[pre stages ->] sfm -> color -> eval on the card, with every kernel's
+    count set to 0 just before and read just after, and the gates of the
+    module note; `need` names the kernels that must have launched.  With
+    `profile`, the sfm stage runs once more under the profiler."""
     import contextlib
 
     import numpy as np
@@ -561,13 +670,14 @@ def phase_sfm(kernel_mods, run, n_views):
     from openmvg_torch.sfm.scene import rmse
     from openmvg_torch.utils.logging import stage_times
 
-    recon = os.path.join(run["work"], "recon")
+    tag = f"[{engine.lower() if engine != 'INCREMENTAL' else 'sfm'}]"
+    recon = os.path.join(run["work"], recon_name)
     recon_json = os.path.join(recon, "sfm_data.json")
     ply = os.path.join(recon, "colorized.ply")
-    stages = [
+    stages = list(pre) + [
         ("sfm", ["sfm", "-i", run["sfm"], "-m", run["md"],
-                 "-M", os.path.join(run["md"], "matches.f.bin"), "-o", recon,
-                 "-s", "INCREMENTAL"]),
+                 "-M", os.path.join(run["md"], matches), "-o", recon,
+                 "-s", engine]),
         ("color", ["color", "-i", recon_json, "-o", ply]),
         ("eval", ["eval", "-i", recon_json, "-g", run["gtdir"]]),
     ]
@@ -591,14 +701,14 @@ def phase_sfm(kernel_mods, run, n_views):
     if done is None:
         fail("the sfm stage printed no summary line")
     polish_steps, rounds = int(done.group(1)), int(done.group(2))
-    log("[sfm] stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
-    log("[sfm] engine stage seconds: " + ", ".join(
+    log(f"{tag} stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    log(f"{tag} engine stage seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_times.items()))
     scene = load_sfm_data(recon_json)
     n_posed = int(scene.pose_valid.sum())
     err_px = rmse(scene)
     pts, cols = load_ply_vertices(ply)
-    log(f"[sfm] {n_posed}/{n_views} poses, {scene.n_landmarks} landmarks, rmse "
+    log(f"{tag} {n_posed}/{n_views} poses, {scene.n_landmarks} landmarks, rmse "
         f"{err_px:.4f} px, position_rmse {stats.get('position_rmse')}, "
         f"{polish_steps} accepted f64 polish steps, {rounds} rounds, "
         f"launches {launches}")
@@ -608,24 +718,53 @@ def phase_sfm(kernel_mods, run, n_views):
         fail(f"position_rmse {stats.get('position_rmse')} above 0.006")
     if not err_px < 1.0:
         fail(f"reprojection rmse {err_px:.4f} px is not below 1 px")
-    if launches["seg_sum"] <= 0:
-        fail("the sfm stage did not launch K2")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"the {engine} sfm stage did not launch {name}")
     if polish_steps < 1:
         fail("the f64 polish accepted no step")
     if len(pts) != scene.n_landmarks + n_posed or not np.isfinite(pts).all():
         fail(f"colorized.ply holds {len(pts)} vertices for {scene.n_landmarks} landmarks "
              f"and {n_posed} cameras")
-    engine = dict(stage_times)
+    engine_s = dict(stage_times)
+    if not profile:
+        return dict(secs=secs, launches=launches, engine=engine_s, stats=stats,
+                    scene=scene, polish_steps=polish_steps, rerun_identical=None)
     # where the sfm stage's time goes: the same stage once more, alone in a
     # fresh process under torch.profiler, into another directory
-    again = os.path.join(run["work"], "recon_profiled")
-    profile_stages([("sfm", stages[0][1][:-4] + ["-o", again, "-s", "INCREMENTAL"])])
+    again = os.path.join(run["work"], recon_name + "_profiled")
+    sfm_argv = dict(stages)["sfm"]
+    profile_stages([("sfm", sfm_argv[:-4] + ["-o", again, "-s", engine])])
     with open(recon_json, "rb") as f1, open(os.path.join(again, "sfm_data.json"), "rb") as f2:
         same = f1.read() == f2.read()
-    log(f"[sfm] the profiled re-run wrote {'the same' if same else 'a different'} "
+    log(f"{tag} the profiled re-run wrote {'the same' if same else 'a different'} "
         "sfm_data.json")
-    return dict(secs=secs, launches=launches, engine=engine, stats=stats,
+    return dict(secs=secs, launches=launches, engine=engine_s, stats=stats,
                 scene=scene, polish_steps=polish_steps, rerun_identical=same)
+
+
+def phase_global(kernel_mods, run, n_views):
+    """filter -g e -> sfm -s GLOBAL -> color -> eval with the fused S-matvec
+    switched on for this phase only (its profiled re-run inherits it)."""
+    from openmvg_torch.io.matches_io import load_matches
+
+    md = run["md"]
+    putative = os.path.join(md, "matches.putative.bin")
+    pre = [("filter", ["filter", "-i", run["sfm"], "-m", putative,
+                       "-o", os.path.join(md, "matches.e.bin"), "-g", "e"])]
+    os.environ["OMT_FUSED_SMATVEC"] = "1"
+    try:
+        res = phase_sfm(kernel_mods, run, n_views, engine="GLOBAL", matches="matches.e.bin",
+                        pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global")
+    finally:
+        del os.environ["OMT_FUSED_SMATVEC"]
+    kept = load_matches(os.path.join(md, "matches.e.bin"))
+    n_put = len(load_matches(putative))
+    res["pairs_kept"] = (len(kept), n_put)
+    log(f"[global] filter -g e kept {len(kept)}/{n_put} pairs "
+        f"({100 * len(kept) / max(n_put, 1):.1f}%), {sum(len(m) for m in kept.values())} "
+        "matches")
+    return res
 
 
 def final_problem(scene):
@@ -673,6 +812,103 @@ def phase_measure_k2(seg_sum, prob):
     return out
 
 
+def smatvec_bound_ms(O, L1, L, M, P, I):
+    """Least time for K3's work: the slot Jacobians (34 floats) and both
+    ids read once a slot, the point blocks, row and group tables and v
+    read once, (P, 6) and (I, 8) written once, against 68 multiply-adds a
+    slot and 9 a point at the float32 rate outside the tensor cores."""
+    nbytes = O * (34 * 4 + 2 * 4) + L * 9 * 4 + L1 * 4 + L * M * 4 + 2 * (P * 6 + I * 8) * 4
+    t_bytes = nbytes / H100_BYTES
+    t_ops = (O * 68 + L * 9) * 2 / H100_F32_FLOPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hpp_inv, vp, vi):
+    """The port's unfused matvec core (sfm/ba.py::schur_cg_solve, S_matvec
+    without the O(P) terms): the yardstick K3 replaces, about 15 small ops
+    and two K2 calls."""
+    import torch
+
+    n_pose, n_intr, n_pts = vp.shape[0], vi.shape[0], Hpp_inv.shape[0]
+    u = ba._camera_matvec(vp, vi, p, Jp6, Ji8)
+    y = torch.einsum("lij,lj->li", Hpp_inv, ba._pt_seg_sum(ba._brmatvec(Jx3, u), p, n_pts))
+    return ba._camera_rmatvec(u - ba._bmatvec(Jx3, ba._pt_expand(y, p)), p, Jp6, Ji8,
+                              n_pose, n_intr)
+
+
+def phase_measure_k3(smatvec, seg_sum, prob):
+    """K3 at the final GLOBAL bundle adjustment's own shapes: its
+    Jacobians, damped point inverses (lam 1e-4), tables and K2 plans, with
+    a random v; beside it the unfused matvec, and the launches of one
+    damped solve each way against (C - 6 S) / 2."""
+    import torch
+
+    from openmvg_torch.ops import linalg
+    from openmvg_torch.sfm import ba
+
+    cfg = ba.BAConfig()
+    p = ba.with_plans(prob)
+    r, Jp6, Ji8, Jx3 = ba.jacobians(p, cfg, ba.cam_fast_ok(p))
+    P, I, L = p.rotvec.shape[0], p.intr_params.shape[0], p.X.shape[0]
+    lam = torch.tensor(1e-4, dtype=torch.float32, device="cuda")
+    eye3 = torch.eye(3, device="cuda")
+    Hpp = ba._block_outer_pt(Jx3, p, L)
+    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp = (Hpp + lam * torch.clamp(dpp, min=1e-12)[..., None] * eye3
+           + ((1.0 - p.mask_X) + 1e-12)[:, None, None] * eye3)
+    Hinv = linalg.inv_sym3(Hpp)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    vp = torch.randn((P, 6), generator=g, device="cuda")
+    vi = torch.randn((I, 8), generator=g, device="cuda")
+    t = p.pt_obs
+    args = [Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hinv, t.row_point, t.groups]
+    plan = smatvec.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups, P, I,
+                                p.seg_plans)
+    got = smatvec.smatvec(*args, plan=plan)
+    again = smatvec.smatvec(*args, plan=plan)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("smatvec on the final GLOBAL BA: two launches differ")
+    err = smatvec_check(smatvec, got, args)
+    if err is None:
+        fail("smatvec on the final GLOBAL BA: outside 1e-5 (1 + S)")
+    uf = unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hinv, vp, vi)
+    delta = max((a - b).abs().max().item() for a, b in zip(got, uf))
+    delta_rel = delta / max(max(b.abs().max().item() for b in uf), 1e-30)
+    ms = cuda_ms(lambda: smatvec.smatvec(*args, plan=plan), 50)
+    plain_ms = cuda_ms(lambda: smatvec.smatvec_plain(*args), 20)
+    unfused_ms = cuda_ms(lambda: unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hinv, vp, vi), 20)
+    O, L1, M = Jp6.shape[0], t.row_point.shape[0], t.groups.shape[1]
+    bound, by = smatvec_bound_ms(O, L1, L, M, P, I)
+    log(f"[measure] smatvec on the final GLOBAL BA (O {O}, R {O // L1}, L1 {L1}, L {L}, "
+        f"M {M}, P {P}, I {I}): max |err| {err:.3g}, repeatable; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, unfused matvec {unfused_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}); {bound / ms * 100:.2f}% of the bound; max |fused - unfused| {delta:.3g} "
+        f"({delta_rel:.3g} of the largest |output|)")
+
+    counts = {}
+    for mode in ("unfused", "fused"):
+        if mode == "fused":
+            os.environ["OMT_FUSED_SMATVEC"] = "1"
+        seg_sum.LAUNCHES = smatvec.LAUNCHES = 0
+        try:
+            ba.schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("OMT_FUSED_SMATVEC", None)
+        counts[mode] = (seg_sum.LAUNCHES, smatvec.LAUNCHES)
+    cg_unfused = (counts["unfused"][0] // 2 - 6) / 2      # (C - 6 S) / 2 with S = 1
+    cg_fused = counts["fused"][1] / 4
+    log(f"[measure] one damped solve: unfused {counts['unfused'][0]} K2 launches "
+        f"((C - 6 S) / 2 = {cg_unfused:g} CG iterations), fused {counts['fused'][0]} K2 and "
+        f"{counts['fused'][1]} K3 launches ({cg_fused:g} calls of four)")
+    if counts["fused"][0] != 12 or abs(cg_fused - cg_unfused) > 1:
+        fail("K3's launches do not match the unfused solve's CG iterations")
+    return dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, fused_vs_unfused=delta, fused_vs_unfused_rel=delta_rel,
+                O=O, R=O // L1, L=L, M=M, P=P, I=I, cg_unfused=cg_unfused, cg_fused=cg_fused)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--views", type=int, default=100)
@@ -684,7 +920,7 @@ def main():
     import torch
 
     import openmvg_torch  # noqa: F401  (numeric policy: no TF32)
-    from openmvg_torch.ops import seg_sum, two_nn
+    from openmvg_torch.ops import seg_sum, smatvec, two_nn
 
     dev = torch.device("cuda")
     kernels = [dict(name="two_nn", module=two_nn, route="cuda",
@@ -692,20 +928,28 @@ def main():
                     replaces="openmvg_tpu/ops/pallas_matching.py:62"),
                dict(name="seg_sum", module=seg_sum, route="cuda",
                     source="openmvg_torch/csrc/seg_sum.cu",
-                    replaces="openmvg_tpu/ops/pallas_segsum.py:30")]
+                    replaces="openmvg_tpu/ops/pallas_segsum.py:30"),
+               dict(name="smatvec", module=smatvec, route="cuda",
+                    source="openmvg_torch/csrc/smatvec.cu",
+                    replaces="openmvg_tpu/ops/pallas_smatvec.py:85")]
     mods = [k["module"] for k in kernels]
     phase_build(kernels)
     kres = phase_kernel(two_nn, dev)
     k2_errs = phase_kernel_k2(seg_sum, dev)
+    k3_err = phase_kernel_k3(smatvec, dev)
     if args.views != 100 or args.size != 1024:
         log(f"[pipeline] CUT: {args.views} views of {args.size}^2 "
             "(the realistic scale is 100 views of 1024^2)")
     with tempfile.TemporaryDirectory(prefix="omt_torch_smoke_") as work:
         run = phase_pipeline(mods, args.views, args.size, work)
-        srun = phase_sfm(mods, run, args.views)
-    prob = final_problem(srun["scene"])
+        os.environ.pop("OMT_FUSED_SMATVEC", None)   # INCREMENTAL runs unfused
+        srun = phase_sfm(mods, run, args.views, profile=False)
+        if srun["launches"]["smatvec"] != 0:
+            fail("K3 launched in the INCREMENTAL phase, where it is off")
+        grun = phase_global(mods, run, args.views)
     meas = phase_measure(two_nn, run, dev)
-    m2 = phase_measure_k2(seg_sum, prob)
+    m2 = phase_measure_k2(seg_sum, final_problem(srun["scene"]))
+    m3 = phase_measure_k3(smatvec, seg_sum, final_problem(grun["scene"]))
 
     k2 = m2["jtr_k6"]
     line = {"kernels": [{
@@ -725,10 +969,25 @@ def main():
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
         "shape": {"O": k2["O"], "k": k2["k"], "num": k2["num"]},
-        "jtj_k36": m2["jtj_k36"],
+        "jtj_k36": m2["jtj_k36"], "launches_global": grun["launches"]["seg_sum"],
+    }, {
+        "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
+        "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
+        "max_abs_err": m3["max_abs_err"], "max_abs_err_cases": k3_err,
+        "ms": m3["ms"], "plain_ms": m3["plain_ms"], "bound_ms": m3["bound_ms"],
+        "bound_by": m3["bound_by"], "library_ms": None, "unfused_ms": m3["unfused_ms"],
+        "fused_vs_unfused_max_abs": m3["fused_vs_unfused"],
+        "fused_vs_unfused_rel": m3["fused_vs_unfused_rel"],
+        "shape": {k: m3[k] for k in ("O", "R", "L", "M", "P", "I")},
+        "cg_iterations_one_solve": {"unfused": m3["cg_unfused"], "fused": m3["cg_fused"]},
     }], "pipeline_s": run["secs"], "sfm_s": srun["secs"], "engine_s": srun["engine"],
-        "polish_steps": srun["polish_steps"], "sfm_rerun_identical": srun["rerun_identical"],
-        "eval": {k: v for k, v in srun["stats"].items() if not isinstance(v, dict)}}
+        "polish_steps": srun["polish_steps"],
+        "eval": {k: v for k, v in srun["stats"].items() if not isinstance(v, dict)},
+        "global_s": grun["secs"], "global_engine_s": grun["engine"],
+        "global_polish_steps": grun["polish_steps"],
+        "global_rerun_identical": grun["rerun_identical"],
+        "global_pairs_kept": grun["pairs_kept"],
+        "global_eval": {k: v for k, v in grun["stats"].items() if not isinstance(v, dict)}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

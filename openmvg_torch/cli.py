@@ -6,11 +6,12 @@ one-command pipeline and eval).
   features  main_ComputeFeatures.cpp       (SIFT, presets)
   pairs     main_PairGenerator.cpp         (EXHAUSTIVE | CONTIGUOUS)
   matches   main_ComputeMatches.cpp        (brute-force L2, ratio 0.8)
-  filter    main_GeometricFilter.cpp       (AC-RANSAC f, 4 px, 2048 it)
-  sfm       main_SfM.cpp                   (INCREMENTAL engine, version 1)
+  filter    main_GeometricFilter.cpp       (AC-RANSAC f | e, 4 px, 2048 it)
+  sfm       main_SfM.cpp                   (INCREMENTAL engine version 1 | GLOBAL)
   color     main_ComputeSfM_DataColor.cpp  (colorized.ply)
   eval      main_evalQuality.cpp           (Strecha ground truth)
-  pipeline  SfM_SequentialPipeline.py      (init .. color in one command)
+  pipeline  SfM_SequentialPipeline.py /    (init .. color in one command; GLOBAL
+            SfM_GlobalPipeline.py           filters with e)
 
 Flags, defaults and printed summaries are the reference's, plus --device:
 every stage runs on `cuda` unless `--device cpu` is given, and raises when
@@ -308,16 +309,17 @@ def cmd_sfm(args):
     from openmvg_torch.io.ply import save_scene_ply
     from openmvg_torch.io.sfm_data import save_sfm_data
     from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm.pipeline_global import GlobalConfig, global_sfm
     from openmvg_torch.sfm.pipeline_incremental import IncrementalConfig, incremental_sfm
     from openmvg_torch.sfm.scene import rmse
     from openmvg_torch.utils.logging import (format_stage_times, reset_stage_times,
                                              stage_times)
 
     engine = args.sfm_engine.upper()
-    if engine != "INCREMENTAL":
+    if engine not in ("INCREMENTAL", "GLOBAL"):
         raise NotImplementedError(
-            f"engine {engine} is not ported yet: GLOBAL is ROADMAP queue 1 item 9, "
-            "INCREMENTALV2 and STELLAR item 10; use -s INCREMENTAL")
+            f"engine {engine} is not ported yet: INCREMENTALV2 and STELLAR are ROADMAP "
+            "queue 1 item 10; use -s INCREMENTAL or -s GLOBAL")
     if args.output_format != "json":
         raise NotImplementedError("sfm_data .bin/.xml are not ported yet (ROADMAP queue 1, "
                                   "item 1); use --output_format json")
@@ -332,11 +334,18 @@ def cmd_sfm(args):
         names = [os.path.basename(n) for n in scene.view_filename]
         initial_pair = (names.index(os.path.basename(args.initial_pair_a)),
                         names.index(os.path.basename(args.initial_pair_b)))
-    cfg = IncrementalConfig(verbose=True, refine_intrinsics=refine,
-                            initializer=args.sfm_initializer, initial_pair=initial_pair)
     reset_stage_times()
     stats = {}
-    incremental_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
+    if engine == "GLOBAL":
+        # stats["rounds"] counts the final BA and its bad-track re-runs
+        cfg = GlobalConfig(verbose=True, refine_intrinsics=refine,
+                           rotation_averaging=args.rotationAveraging,
+                           translation_averaging=args.translationAveraging)
+        global_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
+    else:
+        cfg = IncrementalConfig(verbose=True, refine_intrinsics=refine,
+                                initializer=args.sfm_initializer, initial_pair=initial_pair)
+        incremental_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
     save_sfm_data(scene, os.path.join(args.output_dir, "sfm_data.json"))
     save_scene_ply(scene, os.path.join(args.output_dir, "cloud_and_poses.ply"))
     print(f"SfM done in {time.time() - t0:.1f}s: {int(scene.pose_valid.sum())} poses, "
@@ -372,10 +381,13 @@ def cmd_eval(args):
 
 def cmd_pipeline(args):
     """init -> features -> pairs -> matches -> filter -> sfm -> color in one
-    command (SfM_SequentialPipeline.py), each stage on args.device."""
+    command (SfM_SequentialPipeline.py, SfM_GlobalPipeline.py), each stage on
+    args.device; the GLOBAL engine filters with the essential model."""
     out = args.output_dir
     matches_dir = os.path.join(out, "matches")
-    recon_dir = os.path.join(out, "reconstruction_sequential")
+    is_global = args.sfm_engine.upper() == "GLOBAL"
+    recon_dir = os.path.join(out, "reconstruction_global" if is_global
+                             else "reconstruction_sequential")
     os.makedirs(matches_dir, exist_ok=True)
     sfm_json = os.path.join(out, "sfm_data.json")
     stages = [
@@ -387,7 +399,7 @@ def cmd_pipeline(args):
         ["matches", "-i", sfm_json, "-o", os.path.join(matches_dir, "matches.putative.bin"),
          "-p", os.path.join(matches_dir, "pairs.txt"), "-r", str(args.ratio)],
         ["filter", "-i", sfm_json, "-m", os.path.join(matches_dir, "matches.putative.bin"),
-         "-o", os.path.join(matches_dir, "matches.f.bin"), "-g", "f"],
+         "-o", os.path.join(matches_dir, "matches.f.bin"), "-g", "e" if is_global else "f"],
         ["sfm", "-i", sfm_json, "-m", matches_dir,
          "-M", os.path.join(matches_dir, "matches.f.bin"), "-o", recon_dir,
          "-s", args.sfm_engine],

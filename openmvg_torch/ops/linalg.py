@@ -20,6 +20,26 @@ def det3(M):
             + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
+def inv_sym3(A):
+    """Adjugate inverse of symmetric (..., 3, 3) blocks (the LM-damped point
+    blocks of the bundle adjuster, the point blocks of the triplet solver);
+    a determinant below 1e-30 in magnitude is held at +-1e-30."""
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a12
+    c01 = a02 * a12 - a01 * a22
+    c02 = a01 * a12 - a02 * a11
+    c11 = a00 * a22 - a02 * a02
+    c12 = a01 * a02 - a00 * a12
+    c22 = a00 * a11 - a01 * a01
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    tiny = torch.full_like(det, 1e-30)
+    det = torch.where(det.abs() < 1e-30, torch.where(det < 0, -tiny, tiny), det)
+    rows = torch.stack([torch.stack([c00, c01, c02], -1), torch.stack([c01, c11, c12], -1),
+                        torch.stack([c02, c12, c22], -1)], -2)
+    return rows / det[..., None, None]
+
+
 def solve(A, B):
     """Solve A X = B for (..., n, n) A and (..., n, m) or (..., n) B by
     Gauss-Jordan elimination with partial (row) pivoting."""

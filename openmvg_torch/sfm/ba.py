@@ -18,12 +18,18 @@ never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
                each point's observations are contiguous R-slot rows, so a
                point sum is a reshape-sum, the same order on every run
 
+With OMT_FUSED_SMATVEC=1, a float32 problem in the point-major layout with
+a group table runs each CG iteration's matvec through kernel K3
+(ops/smatvec.py) instead, as the reference's switch of the same name does;
+unset, the matvec is the unfused sequence of J-products and K2 sums.
+
 The LM loop and the CG loop are host loops; each reads its stopping test
 from the device once per iteration.  The dtype is a parameter: the engine
 runs float32 on the card, the tests float64.  Small dense inverses use
 ops/linalg (no cuSOLVER).
 """
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +39,7 @@ from openmvg_torch.geometry import so3
 from openmvg_torch.models import cameras as cm
 from openmvg_torch.ops import linalg
 from openmvg_torch.ops import seg_sum as k2
+from openmvg_torch.ops import smatvec as k3
 from openmvg_torch.utils import hostmath
 
 # refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
@@ -380,26 +387,6 @@ def _brmatvec(J, u):
     return (J * u[:, :, None]).sum(1)
 
 
-def _inv_sym3(A):
-    """Explicit adjugate inverse of (N, 3, 3) SPD blocks (the LM-damped
-    point blocks), formed once per solve so that every apply of Hpp^-1 is
-    one batched product instead of re-deriving the cofactors."""
-    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
-    a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
-    c00 = a11 * a22 - a12 * a12
-    c01 = a02 * a12 - a01 * a22
-    c02 = a01 * a12 - a02 * a11
-    c11 = a00 * a22 - a02 * a02
-    c12 = a01 * a02 - a00 * a12
-    c22 = a00 * a11 - a01 * a01
-    det = a00 * c00 + a01 * c01 + a02 * c02
-    tiny = torch.full_like(det, 1e-30)
-    det = torch.where(det.abs() < 1e-30, torch.where(det < 0, -tiny, tiny), det)
-    rows = torch.stack([torch.stack([c00, c01, c02], -1), torch.stack([c01, c11, c12], -1),
-                        torch.stack([c02, c12, c22], -1)], -2)
-    return rows / det[..., None, None]
-
-
 def _camera_matvec(vc_pose, vc_intr, p, Jp6, Ji8):
     """u_o = Jc_o v for the camera half: (O, 2)."""
     return _bmatvec(Jp6, vc_pose[p.obs_pose]) + _bmatvec(Ji8, _intr_rows(vc_intr, p))
@@ -419,6 +406,22 @@ def _prior_blocks(p):
     pose6 = torch.cat([p.rotvec, p.t], -1)
     J = vmap(jacfwd(_prior_residual_one))(pose6, p.prior_C, p.prior_w).to(pose6.dtype)
     return J * p.mask_pose[:, None, :], _prior_residual_one(pose6, p.prior_C, p.prior_w)
+
+
+def _fused_smatvec_plan(p: BAProblem, Jp6):
+    """K3's plan when the fused S-matvec applies (the reference's gate,
+    sfm/ba.py:704-716): OMT_FUSED_SMATVEC=1, float32 Jacobians, the
+    point-major layout with a group table; None otherwise, and the solve
+    takes the unfused matvec."""
+    t = p.pt_obs
+    if (os.environ.get("OMT_FUSED_SMATVEC") != "1" or Jp6.dtype != torch.float32
+            or t is None or t.rows is not None or t.groups is None):
+        return None
+    L1 = t.row_point.shape[0]
+    if L1 == 0 or Jp6.shape[0] % L1:
+        return None
+    return k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
+                           p.rotvec.shape[0], p.intr_params.shape[0], p.seg_plans)
 
 
 def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
@@ -450,7 +453,8 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
     dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
     dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
 
-    Hpp_inv = _inv_sym3(Hpp)
+    # formed once per solve: every apply of Hpp^-1 is one batched product
+    Hpp_inv = linalg.inv_sym3(Hpp)
 
     def Hpp_solve(v):
         return torch.einsum("lij,lj->li", Hpp_inv, v)
@@ -473,12 +477,18 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
     Mp_inv = linalg.inv(Mp)
     Mi_inv = linalg.inv(Mi)
 
+    fused = _fused_smatvec_plan(p, Jp6)
+
     def S_matvec(vp, vi):
         """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
-        u = _camera_matvec(vp, vi, p, Jp6, Ji8)
-        y = Hpp_solve(_pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
-        sp, si = _camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p, Jp6, Ji8,
-                                 n_pose, n_intr)
+        if fused is not None:
+            sp, si = k3.smatvec(Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hpp_inv,
+                                p.pt_obs.row_point, p.pt_obs.groups, fused)
+        else:
+            u = _camera_matvec(vp, vi, p, Jp6, Ji8)
+            y = Hpp_solve(_pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
+            sp, si = _camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p, Jp6, Ji8,
+                                     n_pose, n_intr)
         sp = sp + torch.einsum("pij,pj->pi", Hprior, vp) + lam * dcc_p * vp
         si = si + lam * dcc_i * vi
         return sp, si

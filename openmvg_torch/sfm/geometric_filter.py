@@ -1,12 +1,15 @@
 """Collection geometric filtering of putative matches, batched over pairs
-(counterpart: openmvg_tpu/sfm/geometric_filter.py, model "f").
+(counterpart: openmvg_tpu/sfm/geometric_filter.py, models "f" and "e").
 
 Reference parity: matching_image_collection/GeometricFilter.hpp
-Robust_model_estimation (:31-63) with the F AC-RANSAC functor
-(F_ACRobust.hpp:89; main_GeometricFilter.cpp:165-368): per pair,
-AC-RANSAC with an upper-bound precision (4 px default, 2048 iterations);
-a pair is kept when a meaningful model has more than 2.5 x MIN_SAMPLES
-inliers, and only its inlier matches are kept.
+Robust_model_estimation (:31-63) with the F and E AC-RANSAC functors
+(F_ACRobust.hpp:89, E_ACRobust.hpp; main_GeometricFilter.cpp:165-368):
+per pair, AC-RANSAC with an upper-bound precision (4 px default, 2048
+iterations); a pair is kept when a meaningful model has more than
+2.5 x MIN_SAMPLES inliers, and only its inlier matches are kept.  Model
+"e" takes unit bearings of every correspondence from one device call and
+each pair's K matrices, and runs in float64 (the 5-point roots are fragile
+in float32, as in the engines).
 
 Pairs run in batches sized by memory (the residual table of a batch is
 B x samples x models x N), sorted by correspondence count so padding stays
@@ -21,11 +24,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from openmvg_torch.models import cameras as cm
 from openmvg_torch.ops import ransac
 from openmvg_torch.sfm import robust
 
 MIN_SAMPLES = {"f": 7, "e": 5, "h": 4, "a": 8, "u": 3, "o": 3}
-_MAX_MODELS = 3               # 7-point solver roots
+_MAX_MODELS = {"f": 3, "e": 10}   # 7-point and 5-point solver roots
 _BATCH_ELEMENTS = 1 << 27     # residual-table entries per batch
 
 
@@ -40,23 +44,26 @@ def geometric_filter(scene, features: List[np.ndarray],
                      model: str = "f", threshold_px: float = None,
                      n_samples: int = 2048, seed: int = 0,
                      guided: bool = False, device="cuda",
-                     dtype=torch.float32) -> Dict[Tuple[int, int], np.ndarray]:
-    """Filter putative matches with the fundamental-matrix model.
+                     dtype=None) -> Dict[Tuple[int, int], np.ndarray]:
+    """Filter putative matches with the fundamental ("f") or essential
+    ("e") model.  dtype None is float32 for "f" and float64 for "e".
 
-    Models e/h/a/u/o and guided matching come with later slices of the
-    port and raise NotImplementedError here."""
+    Models h/a/u/o and guided matching come with later slices of the port
+    and raise NotImplementedError here."""
     if model not in MIN_SAMPLES:
         raise ValueError(f"unknown model {model}")
-    if model != "f":
+    if model not in _MAX_MODELS:
         raise NotImplementedError(
-            f"geometric model {model!r} is not ported yet; only 'f' is "
-            "(ROADMAP queue 1: e with the back-end slice, h/a/u/o later)")
+            f"geometric model {model!r} is not ported yet; 'f' and 'e' are "
+            "(ROADMAP queue 1, item 5: h/a/u/o later)")
     if guided:
         raise NotImplementedError(
             "guided matching (-r) needs sfm/known_poses.py, which comes with "
             "a later slice of the port")
     if threshold_px is None:
         threshold_px = 4.0
+    if dtype is None:
+        dtype = torch.float32 if model == "f" else torch.float64
     prec = threshold_px * threshold_px if np.isfinite(threshold_px) else np.inf
     s_min = MIN_SAMPLES[model]
 
@@ -69,12 +76,14 @@ def geometric_filter(scene, features: List[np.ndarray],
                          xa=features[va][m[:, 0], :2],
                          xb=features[vb][m[:, 1], :2]))
     recs.sort(key=lambda r: len(r["m"]))
+    if model == "e" and recs:
+        _bearings_of(scene, recs, dtype, device)
 
     s1 = max(n_samples * 9 // 10, 1)
     n_draws = s1 + max(n_samples - s1, 1)
     batches, cur = [], []
     for r in recs:  # ascending size: r is the widest of cur + [r]
-        if cur and (len(cur) + 1) * n_draws * _MAX_MODELS * len(r["m"]) > _BATCH_ELEMENTS:
+        if cur and (len(cur) + 1) * n_draws * _MAX_MODELS[model] * len(r["m"]) > _BATCH_ELEMENTS:
             batches.append(cur)
             cur = []
         cur.append(r)
@@ -87,12 +96,16 @@ def geometric_filter(scene, features: List[np.ndarray],
         P = len(grp)
         xa = np.zeros((P, n_max, 2))
         xb = np.zeros((P, n_max, 2))
+        ba_ = np.zeros((P, n_max, 3))
+        bb_ = np.zeros((P, n_max, 3))
         valid = np.zeros((P, n_max), bool)
         gumbel = torch.full((P, n_draws, n_max), -float("inf"), dtype=dtype,
                             device=device)
         for i, r in enumerate(grp):
             n = len(r["m"])
             xa[i, :n], xb[i, :n], valid[i, :n] = r["xa"], r["xb"], True
+            if model == "e":
+                ba_[i, :n], bb_[i, :n] = r["ba"], r["bb"]
             gumbel[i, :, :n] = ransac.gumbel_table(
                 [pair_generator(seed, r["pos"], device)], n_draws, n, dtype,
                 device)[0]
@@ -102,10 +115,18 @@ def geometric_filter(scene, features: List[np.ndarray],
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=device)
 
-        res = robust.robust_fundamental_batch(
-            None, t(xa), t(xb), torch.as_tensor(valid, device=device),
-            t(wh_a[:, 0]), t(wh_a[:, 1]), t(wh_b[:, 0]), t(wh_b[:, 1]),
-            n_samples=n_samples, precision_sq=prec, gumbel=gumbel)
+        valid_t = torch.as_tensor(valid, device=device)
+        if model == "f":
+            res = robust.robust_fundamental_batch(
+                None, t(xa), t(xb), valid_t, t(wh_a[:, 0]), t(wh_a[:, 1]), t(wh_b[:, 0]),
+                t(wh_b[:, 1]), n_samples=n_samples, precision_sq=prec, gumbel=gumbel)
+        else:
+            K_all = cm.K_matrix_np(np.asarray(scene.cameras.params, np.float64))
+            Ka = np.stack([K_all[scene.view_intrinsic[r["va"]]] for r in grp])
+            Kb = np.stack([K_all[scene.view_intrinsic[r["vb"]]] for r in grp])
+            res = robust.robust_essential_batch(
+                None, t(ba_), t(bb_), t(xa), t(xb), t(Ka), t(Kb), valid_t, t(wh_b[:, 0]),
+                t(wh_b[:, 1]), n_samples=n_samples, precision_sq=prec, gumbel=gumbel)
         found = res.found.cpu().numpy()
         inliers = res.inliers.cpu().numpy()
         for i, r in enumerate(grp):
@@ -113,3 +134,19 @@ def geometric_filter(scene, features: List[np.ndarray],
             if found[i] and inl.sum() > 2.5 * s_min:
                 out[(r["va"], r["vb"])] = r["m"][inl]
     return {p: out[p] for p in sorted(out)}
+
+
+def _bearings_of(scene, recs, dtype, device):
+    """Unit bearings of every correspondence of every pair in one device
+    call, into each record's "ba" and "bb"."""
+    xy = np.concatenate([np.concatenate([r["xa"], r["xb"]]) for r in recs])
+    iid = np.concatenate([np.r_[np.full(len(r["m"]), scene.view_intrinsic[r["va"]]),
+                                np.full(len(r["m"]), scene.view_intrinsic[r["vb"]])]
+                          for r in recs])
+    rows = cm.camera_rows(scene.cameras, iid, dtype, device)
+    b = cm.bearing(*rows, torch.as_tensor(xy, dtype=dtype, device=device)).cpu().numpy()
+    ofs = 0
+    for r in recs:
+        n = len(r["m"])
+        r["ba"], r["bb"] = b[ofs:ofs + n], b[ofs + n:ofs + 2 * n]
+        ofs += 2 * n

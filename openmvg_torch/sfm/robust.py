@@ -1,7 +1,7 @@
 """Robust estimation, the AC-RANSAC kernel layer (counterpart:
-openmvg_tpu/sfm/robust.py): fundamental F for the geometric filter,
-relative pose and resection for the incremental engine, and the batched
-pose-only refine.
+openmvg_tpu/sfm/robust.py): fundamental F and essential E for the
+geometric filter, relative pose and resection for the engines, and the
+batched pose-only refine.
 
 Reference parity: the GeometricFilter F functor (F_ACRobust.hpp: 7-point
 on image-size-conditioned coordinates, pixel point-to-line NFA);
@@ -111,6 +111,29 @@ def _essential_kernel(b1, b2, x1, x2, K1, K2, w2, h2, angular):
 
     la0 = ransac.logalpha0_point_to_line(w2, h2, 0.5, dtype=b1.dtype).to(b1.device)
     return fit, err, 5, la0, ransac.MULT_ERROR_POINT_TO_LINE, 10
+
+
+def robust_essential_batch(generators, b1, b2, x1, x2, K1, K2, valid, w2, h2,
+                           n_samples=1024, precision_sq=math.inf, gumbel=None):
+    """5-point AC-RANSAC on E for B pairs at once (the geometric filter's
+    model "e", E_ACRobust.hpp): b* (B, N, 3) unit bearings, x* (B, N, 2)
+    pixels, K* (B, 3, 3), valid (B, N), w2/h2 (B,); the residual is the
+    pixel point-to-line distance through F = K2^-T E K1^-1.  Returns
+    ACRansacResult with model = E (B, 3, 3)."""
+    fit, err, s, la0, mult, mm = _essential_kernel(b1, b2, x1, x2, K1, K2, w2, h2, False)
+    return ransac.ac_ransac(generators, fit, err, (b1, b2), valid, min_samples=s,
+                            logalpha0=la0, mult_error=mult, max_models=mm,
+                            n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_essential(generator, b1, b2, x1, x2, K1, K2, valid, w2, h2,
+                     n_samples=1024, precision_sq=math.inf, gumbel=None):
+    """One pair (no batch dimension); gumbel (n_samples, N) or None."""
+    res = robust_essential_batch(
+        [generator], b1[None], b2[None], x1[None], x2[None], K1[None], K2[None],
+        valid[None], _one(w2, b1), _one(h2, b1), n_samples=n_samples,
+        precision_sq=precision_sq, gumbel=None if gumbel is None else gumbel[None])
+    return ransac.ACRansacResult(*[x[0] for x in res])
 
 
 def _relative_pose_info(res, b1, b2, min_samples):

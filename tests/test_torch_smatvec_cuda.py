@@ -1,0 +1,103 @@
+"""Kernel K3 on the card: openmvg_torch/csrc/smatvec.cu against its plain
+PyTorch version (openmvg_torch/ops/smatvec.py).  The kernel has no CPU
+build, so every test here needs an NVIDIA card and nvcc and skips without
+them.  On a machine with a card (which need not have JAX; the repo's
+conftest imports it, hence --noconftest):
+
+    python -m pytest --noconftest tests/test_torch_smatvec_cuda.py -q
+
+The reference is the plain version on the same inputs in float64.  The
+kernel's float32 rounding scales with the magnitudes behind each output
+(smatvec_magnitudes, S), not with the output, which cancels, so it is held
+to 1e-5 (1 + S).  Two launches on one input must be bitwise equal (the
+kernel uses no atomics).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from openmvg_torch.ops import seg_sum as k2
+from openmvg_torch.ops import smatvec as k3
+
+pytestmark = pytest.mark.cuda
+
+# name, poses, intrinsics, slots a row, points, most observations a point,
+# kind: "one" = one point holds every observation
+CASES = [
+    ("P1_I1_R4", 1, 1, 4, 3000, 6, None),
+    ("P100_I1_R8_multirow", 100, 1, 8, 20000, 40, None),
+    ("P100_I8_R16", 100, 8, 16, 8000, 50, None),
+    ("P1500_I8_R32", 1500, 8, 32, 20000, 70, None),
+    ("P100_I1_R4_one_point_holds_all", 100, 1, 4, 1, 40000, "one"),
+]
+
+
+def k3_case(P, I, R, L, max_obs, kind, seed):
+    """A point-major layout: point l has 1..max_obs observations in
+    ceil(n / R) rows of R slots; the slack slots carry zero Jacobians and
+    pose 0 as sfm/ba.py::point_major_layout lays them out; group entries
+    past a point's rows are the sentinel L1; pose P // 2 has no
+    observation when P > 1."""
+    rng = np.random.default_rng(seed)
+    n = np.full(L, max_obs) if kind == "one" else rng.integers(1, max_obs + 1, L)
+    nrow = -(-n // R)
+    L1, M = int(nrow.sum()), int(nrow.max())
+    start = np.concatenate([[0], np.cumsum(nrow)[:-1]])
+    row_point = np.repeat(np.arange(L), nrow).astype(np.int32)
+    col = np.arange(M)[None, :]
+    groups = np.where(col < nrow[:, None], start[:, None] + col, L1).astype(np.int32)
+    O = L1 * R
+    slot = np.arange(O)
+    used = (slot % R) < (n[row_point[slot // R]] - R * (slot // R - start[row_point[slot // R]]))
+    pose = rng.integers(0, P, O)
+    if P > 1:
+        pose[pose == P // 2] = (P // 2 + 1) % P
+    pose[~used] = 0
+    intr = np.where(used, rng.integers(0, I, O), 0)
+    jp = rng.normal(size=(O, 2, 6)).astype(np.float32) * used[:, None, None]
+    ji = rng.normal(size=(O, 2, 8)).astype(np.float32) * used[:, None, None]
+    jx = rng.normal(size=(O, 2, 3)).astype(np.float32) * used[:, None, None]
+    A = rng.normal(size=(L, 3, 3))
+    hinv = np.linalg.inv(np.einsum("lij,lkj->lik", A, A) + 3 * np.eye(3)).astype(np.float32)
+    return (jp, ji, jx, pose.astype(np.int32), intr.astype(np.int32),
+            rng.normal(size=(P, 6)).astype(np.float32),
+            rng.normal(size=(I, 8)).astype(np.float32), hinv, row_point, groups)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel K3 runs only there")
+    k3.build()
+    k2.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name,P,I,R,L,max_obs,kind", CASES, ids=[c[0] for c in CASES])
+def test_kernel_matches_plain_and_repeats(dev, name, P, I, R, L, max_obs, kind):
+    args = [torch.as_tensor(a, device=dev) for a in k3_case(P, I, R, L, max_obs, kind, P + R)]
+    plan = k3.smatvec_plan(args[3], args[4], args[8], args[9], P, I)
+    before = k3.LAUNCHES
+    got = k3.smatvec(*args)
+    again = k3.smatvec(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 8
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    d = [a.double().cpu() if a.is_floating_point() else a.cpu() for a in args]
+    ref = k3.smatvec_plain(*d)
+    mag = k3.smatvec_magnitudes(*d)
+    for g, r, s in zip(got, ref, mag):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g.double().cpu() - r).abs() <= 1e-5 * (1 + s)).all())
+    if P > 1:
+        assert bool((got[0][P // 2] == 0).all())       # the pose without observations
+
+
+def test_wrapper_raises_on_unsupported(dev):
+    args = [torch.as_tensor(a, device=dev) for a in k3_case(4, 1, 4, 50, 5, None, 0)]
+    with pytest.raises(TypeError):
+        k3.smatvec(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        k3.smatvec(*args[:5], args[5][:, :5], *args[6:])
