@@ -14,17 +14,21 @@ last line is printed):
             (openmvg_torch/csrc/native.cpp), one compiler each, in parallel
   kernel    holds K1 against its plain PyTorch version on the card: exact
             equality for uint8 (16 pairs of 4096x4096x128, ragged counts
-            with valid_b masking, planted ties and duplicate rows), a stated
-            tolerance for float32; times the kernel, the plain version and a
-            one-call PyTorch yardstick (cdist + topk, never used by the port).
-            Holds K2 against its plain version for k in {6, 36, 64} and num
-            in {1, 128, 1024}, k 9 with num 50,000 (beyond the TPU kernel's
-            1024 segments, as the point-side sums of a problem without a
-            group table call it), and the edge cases (no rows, every row out
-            of range, segments without rows, one segment holding every row):
-            float32 within 1e-5 (1 + S), float64 within 1e-12 (1 + S), S the
-            segment's sum of |values| (seg_sum_check), and two launches on
-            one input bitwise equal.  Holds K3 against its plain version
+            with valid_b masking, planted ties and duplicate rows, ties that
+            straddle the 128-row A and 256-column B tiles, counts 1, 127,
+            129 and 3,562), a stated tolerance for float32; times the
+            kernel, the plain version and a one-call PyTorch yardstick
+            (cdist + topk, never used by the port).  Holds K2 against its
+            plain version for k in {6, 36, 64} and num in {1, 128, 1024}, k 9
+            with num 50,000 (beyond the TPU kernel's 1024 segments, as the
+            point-side sums of a problem without a group table call it), and
+            the edge cases (no rows, every row out of range, segments without
+            rows, one segment holding every row), and its fused camera sums
+            (camera_jtu, camera_jtj) on J blocks (O, 2, 6) and (O, 2, 8) over
+            the same ids: float32 within 1e-5 (1 + S), float64 within 1e-12
+            (1 + S), S the sum of magnitudes behind each output
+            (seg_sum_check, camera_check), each call exactly one launch, and
+            two launches on one input bitwise equal.  Holds K3 against its plain version
             (P in {1, 100, 1500}, I in {1, 8}, R in {4, 8, 16, 32}, points
             over several rows, zero padding slots, sentinel group entries,
             one point holding every observation, a pose without one):
@@ -61,17 +65,23 @@ last line is printed):
             sfm stage under torch.profiler in a fresh process (device busy
             share, heaviest device ops) and reports whether it wrote the
             same sfm_data.json
-  measure   K1 on the matches stage's own descriptor stack and pair list,
-            K2 on the final bundle adjustment's pose ids with its own (O, 6)
-            J^T r and (O, 36) J^T J payloads, K3 on the final GLOBAL bundle
-            adjustment's Jacobians, point blocks and tables with a random
-            v (beside the unfused matvec it replaces, and the launch count
-            of one damped solve each way): equality with the plain version,
-            kernel / plain / yardstick times and the bound, for the kernels
-            line
+  measure   K1 on the matches stage's own descriptor stack and pair list
+            (beside its bound, the epilogue floor); K2's fused camera_jtu
+            and camera_jtj on the final INCREMENTAL bundle adjustment's own
+            Jacobians and plans, beside the unfused sequence they replace
+            (products, then one generic K2 call a half), and the generic K2
+            on its (O, 6) J^T r and (O, 36) J^T J payloads; K3 on the final
+            GLOBAL bundle adjustment's Jacobians, point blocks and tables
+            with a random v (beside the unfused matvec it replaces, and the
+            launch count of one damped solve each way: unfused C = K2
+            launches - 3, fused 3 K2 launches and C calls of K3):
+            equality with the plain version, kernel / plain / yardstick
+            times (CUDA events; for K1 and K2 also the device-only kernel
+            time from torch.profiler) and the bound, for the kernels line
 
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
+The last three lines of standard output are the kernels JSON, then
+nvidia-smi's name and power limit, then {"ok": true, "device": {...}}.  It
+imports nothing of JAX or openmvg_tpu.
 """
 
 import argparse
@@ -117,6 +127,29 @@ def cuda_ms(fn, reps, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
+def device_ms(fn, reps, kernel):
+    """Mean device time per call of the kernels whose name contains
+    `kernel`, from torch.profiler over `reps` calls, and their launch count
+    (None, 0 when the profiler saw none of them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and kernel in e.name()]
+    return (sum(durs) / 1e6 / reps if durs else None), len(durs)
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def phase_device():
     import torch
 
@@ -127,9 +160,17 @@ def phase_device():
                        text=True, timeout=60)
     smi = r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout.strip() \
         else f"nvidia-smi unavailable (rc {r.returncode})"
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    try:
+        mhz = float(r.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        mhz = None
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    return smi
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s); "
+        f"max SM clock {mhz} MHz")
+    return smi, mhz
 
 
 def phase_build(kernels):
@@ -168,6 +209,15 @@ def two_nn_bound_ms(descs, counts, pairs, out_elems, int8=True):
     t_ops = ops / (H100_INT8_OPS if int8 else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def two_nn_epilogue_floor_ms(counts, pairs, mhz):
+    """K1's epilogue floor: three IMNMX a distance (csrc/two_nn.cu) on the
+    integer pipe, 64 a clock on each of the 132 SMs, over sum na * nb
+    distances at the card's max SM clock."""
+    c = counts.long()
+    dists = float((c[pairs[:, 0].long()] * c[pairs[:, 1].long()]).sum())
+    return 3 * dists / (132 * 64 * mhz * 1e6) * 1e3 if mhz else None
 
 
 def library_two_nn(a, b):
@@ -243,6 +293,31 @@ def phase_kernel(two_nn, dev):
     if got[2][0].item() != 7 or got[2][1].item() != 1 or got[1][0].item() != 0:
         fail("two_nn (c): ties did not resolve to the lowest index")
     log("[kernel] (c) planted ties and duplicates: exact, ties to the lowest index")
+
+    # (e) ties and duplicates that straddle the 128-row A and 256-column B
+    # tiles, and counts on either side of them
+    a = u8(300, 128)
+    b = u8(1000, 128)
+    b[200] = b[900] = b[7]
+    b[256] = b[511] = b[512] = b[255]
+    a[0] = b[900]
+    a[1] = b[512]
+    a[129] = b[7]
+    a[127:131] = a[129]
+    a, b = a.to(dev), b.to(dev)
+    got = two_nn.two_nn_fused(a, b)
+    errs.append(compare("(e) ties across tiles", got, two_nn.two_nn_plain(a, b)))
+    if [got[2][r].item() for r in (0, 1, 127, 129, 130)] != [7, 255, 7, 7, 7]:
+        fail("two_nn (e): ties across tiles did not resolve to the lowest index")
+    descs_f = u8(5, 3562, 128).to(dev)
+    counts_f = torch.tensor([1, 127, 129, 3562, 0], dtype=torch.int32, device=dev)
+    pairs_f = torch.tensor([(i, j) for i in range(5) for j in range(5)], dtype=torch.int32,
+                           device=dev)
+    errs.append(compare("(f) counts 1, 127, 129, 3562",
+                        two_nn.two_nn_batch(descs_f, counts_f, pairs_f),
+                        two_nn.two_nn_batch_plain(descs_f, counts_f, pairs_f)))
+    log("[kernel] (e) ties across the A and B tiles, (f) counts 1, 127, 129, 3562 and 0 "
+        "(25 pairs, one launch): exact")
 
     # (d) float32: |d - d_plain| <= 1e-4 (1 + |d|); idx1 equal except near ties
     af = torch.randn(3000, 128, generator=g).to(dev)
@@ -443,8 +518,9 @@ def phase_pipeline(kernel_mods, n_views, size, work):
                 work=work, sfm=sfm, md=md, gtdir=gtdir)
 
 
-def phase_measure(two_nn, run, dev):
-    """K1 at the main path's shapes: the whole matches batch in one launch."""
+def phase_measure(two_nn, run, dev, mhz):
+    """K1 at the main path's shapes: the whole matches batch in one launch;
+    CUDA-event and device-only time, the bound and the epilogue floor."""
     import torch
 
     descs = torch.as_tensor(run["stack"], device=dev)
@@ -458,6 +534,9 @@ def phase_measure(two_nn, run, dev):
         if not torch.equal(x, y):
             fail(f"two_nn on the pipeline batch: {what} differs")
     ms = cuda_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 5, 1)
+    dev_ms, n_k = device_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 5,
+                            "two_nn_u8_kernel")
+    floor = two_nn_epilogue_floor_ms(counts, pairs, mhz)
     plain_ms = cuda_ms(lambda: two_nn.two_nn_batch_plain(descs, counts, pairs), 1, 1)
 
     def library():
@@ -469,9 +548,11 @@ def phase_measure(two_nn, run, dev):
     bound, by = two_nn_bound_ms(descs, counts, pairs, P * nmax)
     log(f"[measure] two_nn on the matches batch ({P} pairs, Nmax {nmax}, "
         f"counts {int(counts.min())}..{int(counts.max())}): exact; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, "
-        f"bound {bound:.4f} ms ({by}); {bound / ms * 100:.2f}% of the bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        f"{ms:.3f} ms (device {fmt_ms(dev_ms)}, {n_k} launches in 5 calls), plain "
+        f"{plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}); "
+        f"{bound / ms * 100:.2f}% of the bound; epilogue floor {fmt_ms(floor)}")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, epilogue_floor_ms=floor)
 
 
 class Tee(io.StringIO):
@@ -521,10 +602,39 @@ def seg_sum_check(seg_sum, got, vals, ids, num, tol):
     return err.max().item() if err.numel() else 0.0
 
 
+def camera_check(seg_sum, kind, got, args, tol):
+    """The fused camera sums against their plain version in float64:
+    |got - ref| <= tol (1 + S) for both halves, S the sums of the same
+    products on |J| and |u|.  Returns the largest |got - ref|, or None."""
+    jp, ji, u, pose, intr, P, I = args
+    d = [x.double() for x in (jp, ji, u)]
+    if kind == "jtu":
+        ref = seg_sum.camera_jtu_plain(*d, pose, intr, P, I)
+        mag = seg_sum.camera_jtu_plain(*(x.abs() for x in d), pose, intr, P, I)
+    else:
+        ref = seg_sum.camera_jtj_plain(d[0], d[1], pose, intr, P, I)
+        mag = seg_sum.camera_jtj_plain(d[0].abs(), d[1].abs(), pose, intr, P, I)
+    worst = 0.0
+    for x, r, m in zip(got, ref, mag):
+        err = (x.double() - r).abs()
+        if x.shape != r.shape or not bool((err <= tol * (1 + m)).all()):
+            return None
+        worst = max(worst, err.max().item() if err.numel() else 0.0)
+    return worst
+
+
+def camera_call(seg_sum, kind, args, plans=None):
+    jp, ji, u, pose, intr, P, I = args
+    if kind == "jtu":
+        return seg_sum.camera_jtu(jp, ji, u, pose, intr, P, I, plans)
+    return seg_sum.camera_jtj(jp, ji, pose, intr, P, I, plans)
+
+
 def phase_kernel_k2(seg_sum, dev):
-    """K2 against its plain version (seg_sum_check): float32 within
-    1e-5 (1 + S), float64 within 1e-12 (1 + S); two launches on one input
-    bitwise equal."""
+    """K2 against its plain version (seg_sum_check, camera_check): float32
+    within 1e-5 (1 + S), float64 within 1e-12 (1 + S); each call one
+    launch; two launches on one input bitwise equal.  The fused camera sums
+    run over the same ids as pose and as intrinsic ids."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(2)
@@ -537,7 +647,7 @@ def phase_kernel_k2(seg_sum, dev):
               ("one segment holds every row", 200000, 64, 1024, "one")]
     errs = {}
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        worst = 0.0
+        worst = worst_cam = 0.0
         for name, O, k, num, kind in cases:
             vals = torch.randn((O, k), generator=g, dtype=torch.float64).to(dtype).to(dev)
             ids = torch.randint(0, num, (O,), generator=g)
@@ -549,9 +659,14 @@ def phase_kernel_k2(seg_sum, dev):
             elif kind == "one":
                 ids[:] = 5
             ids = ids.to(torch.int32).to(dev)
-            got = seg_sum.seg_sum(vals, ids, num)
-            again = seg_sum.seg_sum(vals, ids, num)
+            plan = seg_sum.seg_sum_plan(ids, num)
+            before = seg_sum.LAUNCHES
+            got = seg_sum.seg_sum(vals, ids, num, plan)
+            again = seg_sum.seg_sum(vals, ids, num, plan)
             torch.cuda.synchronize()
+            if seg_sum.LAUNCHES != before + 2:
+                fail(f"seg_sum {name} {dtype}: {seg_sum.LAUNCHES - before} launches for "
+                     "two calls")
             if got.shape != (num, k) or not torch.isfinite(got).all():
                 fail(f"seg_sum {name} {dtype}: bad output")
             if not torch.equal(got, again):
@@ -560,9 +675,34 @@ def phase_kernel_k2(seg_sum, dev):
             if err is None:
                 fail(f"seg_sum {name} {dtype}: outside {tol:g} (1 + S)")
             worst = max(worst, err)
+            # the fused camera sums on J blocks over the same ids
+            jp = torch.randn((O, 2, 6), generator=g, dtype=torch.float64).to(dtype).to(dev)
+            ji = torch.randn((O, 2, 8), generator=g, dtype=torch.float64).to(dtype).to(dev)
+            u = torch.randn((O, 2), generator=g, dtype=torch.float64).to(dtype).to(dev)
+            args = (jp, ji, u, ids, ids, num, num)
+            plans = (plan, seg_sum.seg_sum_plan(ids, num))   # one plan a half
+            for kind in ("jtu", "jtj"):
+                before = seg_sum.LAUNCHES
+                got = camera_call(seg_sum, kind, args, plans)
+                again = camera_call(seg_sum, kind, args, plans)
+                torch.cuda.synchronize()
+                if seg_sum.LAUNCHES != before + 2:
+                    fail(f"camera_{kind} {name} {dtype}: {seg_sum.LAUNCHES - before} "
+                         "launches for two calls")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"camera_{kind} {name} {dtype}: two launches differ")
+                if kind == "jtj" and not all(torch.equal(x, x.transpose(-1, -2)) for x in got):
+                    fail(f"camera_jtj {name} {dtype}: not symmetric")
+                err = camera_check(seg_sum, kind, got, args, tol)
+                if err is None:
+                    fail(f"camera_{kind} {name} {dtype}: outside {tol:g} (1 + S)")
+                worst_cam = max(worst_cam, err)
         errs[str(dtype).split(".")[1]] = worst
+        errs["camera_" + str(dtype).split(".")[1]] = worst_cam
         log(f"[kernel] seg_sum {dtype}: {len(cases)} cases within {tol:g} (1 + S), "
-            f"max |err| {worst:.3g}; two launches bitwise equal in every case")
+            f"max |err| {worst:.3g}; camera_jtu and camera_jtj on the same ids within "
+            f"{tol:g} (1 + S), max |err| {worst_cam:.3g}; one launch a call, two launches "
+            "bitwise equal in every case")
     return errs
 
 
@@ -779,18 +919,73 @@ def final_problem(scene):
     return prob
 
 
+def camera_bound_ms(O, P, I, kind, itemsize):
+    """Least time for a fused camera sum: the J blocks (12 + 16 values a
+    row), u (2 values, J^T u only) and both int32 id streams read once, the
+    outputs written once; bytes bound it (a few flops a byte)."""
+    per_row = (28 + (2 if kind == "jtu" else 0)) * itemsize + 8
+    out = (P * 6 + I * 8) if kind == "jtu" else (P * 36 + I * 64)
+    return (O * per_row + out * itemsize) / H100_BYTES * 1e3, "bytes"
+
+
+def unfused_camera(seg_sum, kind, args, plans):
+    """The sequence the fused call replaces: the products formed as
+    (O, k) rows, then one generic K2 call a half."""
+    jp, ji, u, pose, intr, P, I = args
+    if kind == "jtu":
+        return (seg_sum.seg_sum(seg_sum.brmatvec(jp, u), pose, P, plans[0]),
+                seg_sum.seg_sum(seg_sum.brmatvec(ji, u), intr, I, plans[1]))
+    return (seg_sum.seg_sum(seg_sum.outer_flat(jp), pose, P, plans[0]).reshape(P, 6, 6),
+            seg_sum.seg_sum(seg_sum.outer_flat(ji), intr, I, plans[1]).reshape(I, 8, 8))
+
+
 def phase_measure_k2(seg_sum, prob):
-    """K2 at the main path's own shapes: the final BA's pose ids with its
-    (O, 6) J^T r and (O, 36) J^T J payloads, with the plan the BA uses."""
+    """K2 at the main path's own shapes, the final INCREMENTAL bundle
+    adjustment: the fused camera_jtu (u = -r, as the gradient) and
+    camera_jtj on its Jacobians with the plans the BA uses, beside the
+    unfused sequence; and the generic K2 on the (O, 6) J^T r and (O, 36)
+    J^T J pose payloads, beside index_add_."""
     import torch
 
     from openmvg_torch.sfm import ba
 
     cfg = ba.BAConfig()
-    r, Jp6, _, _ = ba.jacobians(prob, cfg, ba.cam_fast_ok(prob))
-    ids, num = prob.obs_pose, prob.rotvec.shape[0]
-    plan = seg_sum.seg_sum_plan(ids, num)
+    p = ba.with_plans(prob)
+    r, Jp6, Ji8, _ = ba.jacobians(p, cfg, ba.cam_fast_ok(p))
+    P, I, O = p.rotvec.shape[0], p.intr_params.shape[0], Jp6.shape[0]
+    plans = p.seg_plans
+    args = (Jp6, Ji8, (-r).contiguous(), p.obs_pose, p.obs_intr, P, I)
     out = {}
+    for kind in ("jtu", "jtj"):
+        got = camera_call(seg_sum, kind, args, plans)
+        again = camera_call(seg_sum, kind, args, plans)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"camera_{kind} on the final BA: two launches differ")
+        err = camera_check(seg_sum, kind, got, args, 1e-5)
+        if err is None:
+            fail(f"camera_{kind} on the final BA: outside 1e-5 (1 + S)")
+        uf = unfused_camera(seg_sum, kind, args, plans)
+        delta = max((a - b).abs().max().item() for a, b in zip(got, uf))
+        ms = cuda_ms(lambda: camera_call(seg_sum, kind, args, plans), 50)
+        dev_ms, n_k = device_ms(lambda: camera_call(seg_sum, kind, args, plans), 50,
+                                "camera_sums_kernel")
+        unfused_ms = cuda_ms(lambda: unfused_camera(seg_sum, kind, args, plans), 50)
+        plain_fn = seg_sum.camera_jtu_plain if kind == "jtu" else seg_sum.camera_jtj_plain
+        pargs = args if kind == "jtu" else args[:2] + args[3:]
+        plain_ms = cuda_ms(lambda: plain_fn(*pargs), 20)
+        bound, by = camera_bound_ms(O, P, I, kind, Jp6.element_size())
+        log(f"[measure] camera_{kind} on the final BA (O {O}, P {P}, I {I}, chunks "
+            f"{plans[0].chunk_start.shape[0]} + {plans[1].chunk_start.shape[0]}): max |err| "
+            f"{err:.3g}, repeatable, max |fused - unfused| {delta:.3g}; kernel {ms:.4f} ms "
+            f"(device {fmt_ms(dev_ms)}, {n_k} launches in 50 calls), unfused sequence "
+            f"{unfused_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{bound / ms * 100:.2f}% of the bound")
+        out[kind] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                         library_ms=None, bound_ms=bound, bound_by=by, max_abs_err=err,
+                         fused_vs_unfused=delta, O=O, P=P, I=I)
+    ids, num = p.obs_pose, P
+    plan = plans[0]
     for name, vals in (("jtr_k6", ba._brmatvec(Jp6, -r).contiguous()),
                        ("jtj_k36", ba._outer_flat(Jp6).contiguous())):
         got = seg_sum.seg_sum(vals, ids, num, plan)
@@ -799,16 +994,19 @@ def phase_measure_k2(seg_sum, prob):
         if err is None:
             fail(f"seg_sum on the final BA's {name}: outside 1e-5 (1 + S)")
         ms = cuda_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50)
+        dev_ms, _ = device_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50,
+                              "seg_sum_kernel")
         plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(vals, ids, num), 20)
         lib_ms = cuda_ms(lambda: library_seg_sum(vals, ids, num), 20)
-        O, k = vals.shape
+        k = vals.shape[1]
         bound, by = seg_sum_bound_ms(O, k, num, vals.element_size())
         log(f"[measure] seg_sum {name} on the final BA (O {O}, k {k}, num {num}, "
             f"{int(plan.perm.shape[0])} valid rows): max |err| {err:.3g}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}); {bound / ms * 100:.2f}% of the bound")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                         bound_by=by, max_abs_err=err, O=O, k=k, num=num)
+            f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+            f"index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{bound / ms * 100:.2f}% of the bound")
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by, max_abs_err=err, O=O, k=k, num=num)
     return out
 
 
@@ -825,8 +1023,8 @@ def smatvec_bound_ms(O, L1, L, M, P, I):
 
 def unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hpp_inv, vp, vi):
     """The port's unfused matvec core (sfm/ba.py::schur_cg_solve, S_matvec
-    without the O(P) terms): the yardstick K3 replaces, about 15 small ops
-    and two K2 calls."""
+    without the O(P) terms): the yardstick K3 replaces, about 12 small ops
+    and one fused K2 call."""
     import torch
 
     n_pose, n_intr, n_pts = vp.shape[0], vi.shape[0], Hpp_inv.shape[0]
@@ -840,7 +1038,7 @@ def phase_measure_k3(smatvec, seg_sum, prob):
     """K3 at the final GLOBAL bundle adjustment's own shapes: its
     Jacobians, damped point inverses (lam 1e-4), tables and K2 plans, with
     a random v; beside it the unfused matvec, and the launches of one
-    damped solve each way against (C - 6 S) / 2."""
+    damped solve each way (unfused 3 + C K2 launches, fused 3)."""
     import torch
 
     from openmvg_torch.ops import linalg
@@ -897,13 +1095,14 @@ def phase_measure_k3(smatvec, seg_sum, prob):
         finally:
             os.environ.pop("OMT_FUSED_SMATVEC", None)
         counts[mode] = (seg_sum.LAUNCHES, smatvec.LAUNCHES)
-    cg_unfused = (counts["unfused"][0] // 2 - 6) / 2      # (C - 6 S) / 2 with S = 1
+    cg_unfused = counts["unfused"][0] - 3     # 3 + C: two J^T u, one J^T J, one a CG step
     cg_fused = counts["fused"][1] / 4
     log(f"[measure] one damped solve: unfused {counts['unfused'][0]} K2 launches "
-        f"((C - 6 S) / 2 = {cg_unfused:g} CG iterations), fused {counts['fused'][0]} K2 and "
-        f"{counts['fused'][1]} K3 launches ({cg_fused:g} calls of four)")
-    if counts["fused"][0] != 12 or abs(cg_fused - cg_unfused) > 1:
-        fail("K3's launches do not match the unfused solve's CG iterations")
+        f"(C = launches - 3 = {cg_unfused:g} CG iterations), fused {counts['fused'][0]} K2 "
+        f"and {counts['fused'][1]} K3 launches ({cg_fused:g} calls of four)")
+    if counts["fused"][0] != 3 or abs(cg_fused - cg_unfused) > 1:
+        fail("one damped solve breaks the launch rule (unfused 3 + C K2 launches; fused 3 "
+             "K2 launches and C calls of K3)")
     return dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound, bound_by=by,
                 max_abs_err=err, fused_vs_unfused=delta, fused_vs_unfused_rel=delta_rel,
                 O=O, R=O // L1, L=L, M=M, P=P, I=I, cg_unfused=cg_unfused, cg_fused=cg_fused)
@@ -915,7 +1114,7 @@ def main():
     ap.add_argument("--size", type=int, default=1024)
     args = ap.parse_args()
     t_all = time.perf_counter()
-    smi = phase_device()
+    smi, mhz = phase_device()
 
     import torch
 
@@ -946,30 +1145,34 @@ def main():
         srun = phase_sfm(mods, run, args.views, profile=False)
         if srun["launches"]["smatvec"] != 0:
             fail("K3 launched in the INCREMENTAL phase, where it is off")
+        log(f"[sfm] K2 launches in the INCREMENTAL sfm stage: {srun['launches']['seg_sum']} "
+            "(one a call)")
         grun = phase_global(mods, run, args.views)
-    meas = phase_measure(two_nn, run, dev)
+    meas = phase_measure(two_nn, run, dev, mhz)
     m2 = phase_measure_k2(seg_sum, final_problem(srun["scene"]))
     m3 = phase_measure_k3(smatvec, seg_sum, final_problem(grun["scene"]))
 
-    k2 = m2["jtr_k6"]
+    k2 = m2["jtu"]
     line = {"kernels": [{
         "name": "two_nn", "route": "cuda", "source": kernels[0]["source"],
         "replaces": kernels[0]["replaces"], "launches": run["launches"]["two_nn"],
         "max_abs_err": kres["u8_err"], "max_abs_err_f32": kres["f32_err"],
-        "ms": meas["ms"], "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
-        "bound_by": meas["bound_by"], "library_ms": meas["library_ms"],
-        "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
+        "ms": meas["ms"], "device_ms": meas["device_ms"], "plain_ms": meas["plain_ms"],
+        "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
+        "library_ms": meas["library_ms"], "epilogue_floor_ms": meas["epilogue_floor_ms"],
+        "max_sm_clock_mhz": mhz, "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
                              "library_ms": kres["headline_lib_ms"],
                              "bound_ms": kres["headline_bound_ms"]},
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
-        "max_abs_err": k2["max_abs_err"], "max_abs_err_f32_cases": k2_errs["float32"],
-        "max_abs_err_f64_cases": k2_errs["float64"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
-        "shape": {"O": k2["O"], "k": k2["k"], "num": k2["num"]},
-        "jtj_k36": m2["jtj_k36"], "launches_global": grun["launches"]["seg_sum"],
+        "max_abs_err": k2["max_abs_err"], "max_abs_err_cases": k2_errs,
+        "ms": k2["ms"], "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+        "unfused_ms": k2["unfused_ms"], "fused_vs_unfused_max_abs": k2["fused_vs_unfused"],
+        "shape": {"O": k2["O"], "P": k2["P"], "I": k2["I"]}, "camera_jtj": m2["jtj"],
+        "generic_jtr_k6": m2["jtr_k6"], "generic_jtj_k36": m2["jtj_k36"],
+        "launches_global": grun["launches"]["seg_sum"],
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],

@@ -11,8 +11,10 @@ blocks come from one batched call, closed form for all-pinhole problems
 (cam_fast) and torch.func forward-mode otherwise.  The Schur complement is
 never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
 
-  camera side  sums over the pose / intrinsic slots go through kernel K2
-               (ops/seg_sum.py) on the card, with one plan per problem (the
+  camera side  J^T u and J^T J over the pose and intrinsic slots go through
+               kernel K2's fused camera sums (ops/seg_sum.py: camera_jtu,
+               camera_jtj, one launch for both halves, the products formed
+               in registers) on the card, with one plan per problem (the
                slot ids are fixed across the LM loop)
   point side   the point-major layout (build_pt_obs / point_major_layout):
                each point's observations are contiguous R-slot rows, so a
@@ -256,10 +258,6 @@ def with_plans(p: BAProblem):
         k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0])))
 
 
-def _plans(p):
-    return p.seg_plans if p.seg_plans is not None else (None, None)
-
-
 def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
     """Host-side two-level tables (PtObsTable, gather form) for point-block
     sums.  Row width R is chosen among 4..32 to minimise slots plus three
@@ -361,9 +359,8 @@ def _pt_expand(y, p: BAProblem):
     return y[p.obs_point]
 
 
-def _outer_flat(J):
-    O, _, k = J.shape
-    return (J[:, :, :, None] * J[:, :, None, :]).sum(1).reshape(O, k * k)
+_outer_flat = k2.outer_flat
+_brmatvec = k2.brmatvec
 
 
 def _block_outer_pt(J, p: BAProblem, num):
@@ -371,20 +368,9 @@ def _block_outer_pt(J, p: BAProblem, num):
     return _pt_seg_sum(_outer_flat(J), p, num).reshape(num, k, k)
 
 
-def _block_outer_seg(J, ids, num, plan=None):
-    """Segment sum of the J_o^T J_o blocks, on an (O, k*k) flat view."""
-    k = J.shape[-1]
-    return _seg_sum(_outer_flat(J), ids, num, plan).reshape(num, k, k)
-
-
 def _bmatvec(J, v):
     """(O, 2, k) x (O, k) -> (O, 2)."""
     return (J * v[:, None, :]).sum(-1)
-
-
-def _brmatvec(J, u):
-    """(O, 2, k) x (O, 2) -> (O, k)."""
-    return (J * u[:, :, None]).sum(1)
 
 
 def _camera_matvec(vc_pose, vc_intr, p, Jp6, Ji8):
@@ -393,10 +379,15 @@ def _camera_matvec(vc_pose, vc_intr, p, Jp6, Ji8):
 
 
 def _camera_rmatvec(u, p, Jp6, Ji8, n_pose, n_intr):
-    """Jc^T u reduced into (P, 6) and (I, 8) through K2."""
-    plan_p, plan_i = _plans(p)
-    return (_seg_sum(_brmatvec(Jp6, u), p.obs_pose, n_pose, plan_p),
-            _seg_sum(_brmatvec(Ji8, u), p.obs_intr, n_intr, plan_i))
+    """Jc^T u reduced into (P, 6) and (I, 8): one K2 launch on the card,
+    the plain products and segment sums on the CPU."""
+    return k2.camera_jtu(Jp6, Ji8, u, p.obs_pose, p.obs_intr, n_pose, n_intr, p.seg_plans)
+
+
+def _camera_jtj(p, Jp6, Ji8, n_pose, n_intr):
+    """The J_o^T J_o blocks summed into (P, 6, 6) and (I, 8, 8): one K2
+    launch on the card."""
+    return k2.camera_jtj(Jp6, Ji8, p.obs_pose, p.obs_intr, n_pose, n_intr, p.seg_plans)
 
 
 def _prior_blocks(p):
@@ -430,7 +421,6 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
     n_pose = p.rotvec.shape[0]
     n_intr = p.intr_params.shape[0]
     n_pts = p.X.shape[0]
-    plan_p, plan_i = _plans(p)
     dt, dev = p.X.dtype, p.X.device
     eye3 = torch.eye(3, dtype=dt, device=dev)
 
@@ -448,8 +438,8 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
     Hprior = torch.einsum("pij,pik->pjk", Jprior, Jprior)
     gprior = -torch.einsum("pij,pi->pj", Jprior, rprior)
 
-    Hcc_p = _block_outer_seg(Jp6, p.obs_pose, n_pose, plan_p) + Hprior
-    Hcc_i = _block_outer_seg(Ji8, p.obs_intr, n_intr, plan_i)
+    Hcc_p, Hcc_i = _camera_jtj(p, Jp6, Ji8, n_pose, n_intr)
+    Hcc_p = Hcc_p + Hprior
     dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
     dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
 

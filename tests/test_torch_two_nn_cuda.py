@@ -37,7 +37,7 @@ def _assert_equal(got, ref):
 
 
 def _ragged_batch(seed):
-    """Views with ragged counts, duplicated columns across 64-row tiles and
+    """Views with ragged counts, duplicated columns across tiles and
     rows of one view copied into another (exact ties and distance 0)."""
     rng = np.random.default_rng(seed)
     descs = _u8(rng, 4, 700, 128)
@@ -67,6 +67,65 @@ def test_fused_u8_valid_b_exact(dev, frac_valid):
     b[200] = b[100] = a[5]
     vb = torch.as_tensor(rng.uniform(size=517) < frac_valid, device=dev)
     _assert_equal(two_nn.two_nn_fused(a, b, vb), two_nn.two_nn_plain(a, b, vb))
+
+
+def test_ties_straddle_tensor_core_tiles(dev):
+    """Equal B rows in one and in different 256-column tiles (7, 200, 900;
+    255, 256, 511, 512), A rows copied from them, and duplicate A rows:
+    the lowest tied column wins and d2 == d1 == 0."""
+    rng = np.random.default_rng(5)
+    a = _u8(rng, 300, 128)
+    b = _u8(rng, 1000, 128)
+    b[200] = b[900] = b[7]
+    b[256] = b[511] = b[512] = b[255]
+    a[0] = b[900]
+    a[1] = b[512]
+    a[129] = b[7]
+    a[2:6] = a[2]
+    a, b = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    got = two_nn.two_nn_fused(a, b)
+    _assert_equal(got, two_nn.two_nn_plain(a, b))
+    assert [got[2][r].item() for r in (0, 1, 129)] == [7, 255, 7]
+    assert got[0][0].item() == got[1][0].item() == 0
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 3562])
+def test_ragged_counts_exact(dev, n):
+    """Counts on either side of the 128-row A tile and the 256-column B
+    tile, in one batch with a full 3562-row view."""
+    rng = np.random.default_rng(n)
+    descs = torch.as_tensor(_u8(rng, 3, 3562, 128), device=dev)
+    counts = torch.tensor([n, 3562, 129], dtype=torch.int32, device=dev)
+    pairs = torch.tensor([[0, 1], [1, 0], [0, 0], [2, 0], [0, 2]], dtype=torch.int32,
+                         device=dev)
+    _assert_equal(two_nn.two_nn_batch(descs, counts, pairs),
+                  two_nn.two_nn_batch_plain(descs, counts, pairs))
+
+
+@pytest.mark.parametrize("D", [36, 64])
+def test_short_descriptors_exact(dev, D):
+    """D below 128 (4-byte copies when D % 16 != 0), zero-padded inside."""
+    rng = np.random.default_rng(D)
+    a = torch.as_tensor(_u8(rng, 200, D), device=dev)
+    b = torch.as_tensor(_u8(rng, 300, D), device=dev)
+    vb = torch.as_tensor(rng.uniform(size=300) < 0.7, device=dev)
+    _assert_equal(two_nn.two_nn_fused(a, b, vb), two_nn.two_nn_plain(a, b, vb))
+
+
+def test_pipeline_shaped_batch_exact(dev):
+    """The matches stage's shape: 12 views of up to 3562 descriptors,
+    CONTIGUOUS-6 pairs, one launch."""
+    rng = np.random.default_rng(7)
+    V = 12
+    descs = torch.as_tensor(_u8(rng, V, 3562, 128), device=dev)
+    counts = torch.as_tensor(rng.integers(2900, 3563, size=V).astype(np.int32), device=dev)
+    pairs = torch.tensor([(i, j) for i in range(V) for j in range(i + 1, min(i + 7, V))],
+                         dtype=torch.int32, device=dev)
+    before = two_nn.LAUNCHES
+    got = two_nn.two_nn_batch(descs, counts, pairs)
+    torch.cuda.synchronize()
+    assert two_nn.LAUNCHES == before + 1
+    _assert_equal(got, two_nn.two_nn_batch_plain(descs, counts, pairs))
 
 
 def test_fused_f32_within_tolerance(dev):
