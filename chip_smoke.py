@@ -31,10 +31,12 @@ last line is printed):
             two launches on one input bitwise equal.  Holds K3 against its plain version
             (P in {1, 100, 1500}, I in {1, 8}, R in {4, 8, 16, 32}, points
             over several rows, zero padding slots, sentinel group entries,
-            one point holding every observation, a pose without one):
-            float32 within 1e-5 (1 + S) of the plain version in float64, S
-            the output's sum of magnitudes (smatvec_magnitudes), and two
-            launches bitwise equal
+            one point holding every observation, a point of more than one
+            tile among short tracks, a pose without one): float32 within
+            1e-5 (1 + S) of the plain version in float64, S the output's
+            sum of magnitudes (smatvec_magnitudes), the e buffer of its
+            first launch likewise against smatvec_e_plain, two launches a
+            call, and two calls bitwise equal
   pipeline  renders the textured-sphere dataset (100 views of 1024^2, the
             repo's realistic scale) on the card and runs the port's CLI
             init -> features (HIGH) -> pairs (CONTIGUOUS 6) -> matches ->
@@ -76,8 +78,9 @@ last line is printed):
             launch count of one damped solve each way: unfused C = K2
             launches - 3, fused 3 K2 launches and C calls of K3):
             equality with the plain version, kernel / plain / yardstick
-            times (CUDA events; for K1 and K2 also the device-only kernel
-            time from torch.profiler) and the bound, for the kernels line
+            times (CUDA events, and the device-only kernel time from
+            torch.profiler) and the bound (for K1 its epilogue floor, for
+            K3 its design floor beside it), for the kernels line
 
 The last three lines of standard output are the kernels JSON, then
 nvidia-smi's name and power limit, then {"ok": true, "device": {...}}.  It
@@ -706,17 +709,19 @@ def phase_kernel_k2(seg_sum, dev):
     return errs
 
 
-def k3_case(g, P, I, R, L, max_obs, one_point):
+def k3_case(g, P, I, R, L, max_obs, kind):
     """A point-major layout (sfm/ba.py::point_major_layout): point l has
-    1..max_obs observations (every point max_obs when one_point) in
-    ceil(n / R) rows of R slots; slack slots carry zero Jacobians and pose
-    0; group entries past a point's rows are the sentinel L1; pose P // 2
-    has no observation when P > 1.  Returns the smatvec arguments on the
-    CPU."""
+    1..max_obs observations (every point max_obs when kind is "one"; point
+    L // 2 5,000 when it is "hub") in ceil(n / R) rows of R slots; slack
+    slots carry zero Jacobians and pose 0; group entries past a point's
+    rows are the sentinel L1; pose P // 2 has no observation when P > 1.
+    Returns the smatvec arguments on the CPU."""
     import torch
 
-    n = torch.full((L,), max_obs) if one_point else torch.randint(1, max_obs + 1, (L,),
-                                                                  generator=g)
+    n = torch.full((L,), max_obs) if kind == "one" else torch.randint(1, max_obs + 1, (L,),
+                                                                      generator=g)
+    if kind == "hub":
+        n[L // 2] = 5000
     nrow = (n + R - 1) // R
     L1, M = int(nrow.sum()), int(nrow.max())
     start = torch.cumsum(nrow, 0) - nrow
@@ -760,21 +765,32 @@ def smatvec_check(smatvec, got, args):
 
 
 def phase_kernel_k3(smatvec, dev):
-    """K3 against its plain version (smatvec_check) and bitwise repeatable."""
+    """K3 against its plain version (smatvec_check, and its e buffer against
+    smatvec_e_plain), two launches a call, and bitwise repeatable."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(3)
     log("[kernel] smatvec: kernel vs plain on the card")
-    cases = [("P1 I1 R4", 1, 1, 4, 3000, 6, False),
-             ("P100 I1 R8, points over several rows", 100, 1, 8, 20000, 40, False),
-             ("P100 I8 R16", 100, 8, 16, 8000, 50, False),
-             ("P1500 I8 R32", 1500, 8, 32, 20000, 70, False),
-             ("P1500 I1 R4", 1500, 1, 4, 30000, 12, False),
-             ("P100 I1 R4, one point holds every observation", 100, 1, 4, 1, 40000, True)]
+    cases = [("P1 I1 R4", 1, 1, 4, 3000, 6, None),
+             ("P100 I1 R8, points over several rows", 100, 1, 8, 20000, 40, None),
+             ("P100 I8 R16", 100, 8, 16, 8000, 50, None),
+             ("P1500 I8 R32", 1500, 8, 32, 20000, 70, None),
+             ("P1500 I1 R4", 1500, 1, 4, 30000, 12, None),
+             ("P100 I1 R4, one point holds every observation", 100, 1, 4, 1, 40000, "one"),
+             ("P30 I2 R8, a point of 5,000 among short tracks", 30, 2, 8, 5000, 12, "hub")]
     worst = 0.0
-    for name, P, I, R, L, max_obs, one in cases:
-        args = [a.to(dev) for a in k3_case(g, P, I, R, L, max_obs, one)]
-        got = smatvec.smatvec(*args)
+    for name, P, I, R, L, max_obs, kind in cases:
+        args = [a.to(dev) for a in k3_case(g, P, I, R, L, max_obs, kind)]
+        plan = smatvec.smatvec_plan(args[3], args[4], args[8], args[9], P, I)
+        n0 = smatvec.LAUNCHES
+        got = smatvec.smatvec(*args, plan=plan)
+        if smatvec.LAUNCHES - n0 != 2:
+            fail(f"smatvec {name}: {smatvec.LAUNCHES - n0} launches, not two")
+        torch.cuda.synchronize()
+        d = [a.double() if a.is_floating_point() else a for a in args]
+        e_err = (plan.e.double() - smatvec.smatvec_e_plain(*d)).abs()
+        if not bool((e_err <= 1e-5 * (1 + smatvec.smatvec_e_magnitudes(*d))).all()):
+            fail(f"smatvec {name}: the e buffer is outside 1e-5 (1 + S)")
         again = smatvec.smatvec(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -788,8 +804,8 @@ def phase_kernel_k3(smatvec, dev):
             fail(f"smatvec {name}: outside 1e-5 (1 + S)")
         worst = max(worst, err)
         log(f"[kernel] smatvec {name}: O {args[0].shape[0]}, max |err| {err:.3g}")
-    log(f"[kernel] smatvec float32: {len(cases)} cases within 1e-5 (1 + S), max |err| "
-        f"{worst:.3g}; two launches bitwise equal in every case")
+    log(f"[kernel] smatvec float32: {len(cases)} cases within 1e-5 (1 + S), e buffer too, "
+        f"max |err| {worst:.3g}; two launches a call, two calls bitwise equal in every case")
     return worst
 
 
@@ -1021,6 +1037,18 @@ def smatvec_bound_ms(O, L1, L, M, P, I):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def smatvec_design_floor_ms(O, L, P, I):
+    """Least time for K3's two-launch design, which reads the slot record
+    twice (the pose sums cannot be taken in the point-owned pass without
+    per-block (P, 14) partials or float atomics): launch 1 reads the record
+    (144 B a slot), the point blocks and row offsets and writes e (8 B);
+    launch 2 reads, through K2's plans, each slot's perm entry, Jp or Ji and
+    e (60 + 76 B), and writes the outputs."""
+    launch1 = O * (144 + 8) + L * (9 + 1) * 4
+    launch2 = O * (60 + 76) + 2 * (P * 6 + I * 8) * 4
+    return (launch1 + launch2) / H100_BYTES * 1e3
+
+
 def unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hpp_inv, vp, vi):
     """The port's unfused matvec core (sfm/ba.py::schur_cg_solve, S_matvec
     without the O(P) terms): the yardstick K3 replaces, about 12 small ops
@@ -1034,11 +1062,10 @@ def unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hpp_inv, vp, vi):
                               n_pose, n_intr)
 
 
-def phase_measure_k3(smatvec, seg_sum, prob):
-    """K3 at the final GLOBAL bundle adjustment's own shapes: its
-    Jacobians, damped point inverses (lam 1e-4), tables and K2 plans, with
-    a random v; beside it the unfused matvec, and the launches of one
-    damped solve each way (unfused 3 + C K2 launches, fused 3)."""
+def k3_final_inputs(smatvec, prob):
+    """K3's inputs at a bundle adjustment's own shapes: its Jacobians,
+    damped point inverses (lam 1e-4), tables and K2 plans, with a random v.
+    Returns (p, r, lam, cfg, args, plan)."""
     import torch
 
     from openmvg_torch.ops import linalg
@@ -1062,7 +1089,24 @@ def phase_measure_k3(smatvec, seg_sum, prob):
     args = [Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hinv, t.row_point, t.groups]
     plan = smatvec.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups, P, I,
                                 p.seg_plans)
+    return p, r, lam, cfg, args, plan
+
+
+def phase_measure_k3(smatvec, seg_sum, prob):
+    """K3 at the final GLOBAL bundle adjustment's own shapes
+    (k3_final_inputs); beside it the unfused matvec, and the launches of
+    one damped solve each way (unfused 3 + C K2 launches, fused 3)."""
+    import torch
+
+    from openmvg_torch.sfm import ba
+
+    p, r, lam, cfg, args, plan = k3_final_inputs(smatvec, prob)
+    Jp6, Ji8, Jx3, vp, vi, Hinv, t = args[0], args[1], args[2], args[5], args[6], args[7], \
+        p.pt_obs
+    P, I, L = vp.shape[0], vi.shape[0], Hinv.shape[0]
+    n0 = smatvec.LAUNCHES
     got = smatvec.smatvec(*args, plan=plan)
+    per_call = smatvec.LAUNCHES - n0
     again = smatvec.smatvec(*args, plan=plan)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -1074,15 +1118,20 @@ def phase_measure_k3(smatvec, seg_sum, prob):
     delta = max((a - b).abs().max().item() for a, b in zip(got, uf))
     delta_rel = delta / max(max(b.abs().max().item() for b in uf), 1e-30)
     ms = cuda_ms(lambda: smatvec.smatvec(*args, plan=plan), 50)
+    dev_ms, n_k = device_ms(lambda: smatvec.smatvec(*args, plan=plan), 50, "smatvec")
     plain_ms = cuda_ms(lambda: smatvec.smatvec_plain(*args), 20)
     unfused_ms = cuda_ms(lambda: unfused_matvec(ba, p, Jp6, Ji8, Jx3, Hinv, vp, vi), 20)
     O, L1, M = Jp6.shape[0], t.row_point.shape[0], t.groups.shape[1]
     bound, by = smatvec_bound_ms(O, L1, L, M, P, I)
+    floor = smatvec_design_floor_ms(O, L, P, I)
     log(f"[measure] smatvec on the final GLOBAL BA (O {O}, R {O // L1}, L1 {L1}, L {L}, "
-        f"M {M}, P {P}, I {I}): max |err| {err:.3g}, repeatable; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, unfused matvec {unfused_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({by}); {bound / ms * 100:.2f}% of the bound; max |fused - unfused| {delta:.3g} "
-        f"({delta_rel:.3g} of the largest |output|)")
+        f"M {M}, P {P}, I {I}, {plan.tiles.shape[0]} tiles): max |err| {err:.3g}, "
+        f"repeatable; kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, {n_k} launches in 50 "
+        f"calls, {per_call} a call), plain {plain_ms:.4f} ms, unfused matvec "
+        f"{unfused_ms:.4f} ms, bound {bound:.4f} ms ({by}), design floor {floor:.4f} ms; "
+        f"{bound / ms * 100:.2f}% of the bound"
+        + (f" by events, {bound / dev_ms * 100:.2f}% on the device" if dev_ms else "")
+        + f"; max |fused - unfused| {delta:.3g} ({delta_rel:.3g} of the largest |output|)")
 
     counts = {}
     for mode in ("unfused", "fused"):
@@ -1096,14 +1145,15 @@ def phase_measure_k3(smatvec, seg_sum, prob):
             os.environ.pop("OMT_FUSED_SMATVEC", None)
         counts[mode] = (seg_sum.LAUNCHES, smatvec.LAUNCHES)
     cg_unfused = counts["unfused"][0] - 3     # 3 + C: two J^T u, one J^T J, one a CG step
-    cg_fused = counts["fused"][1] / 4
+    cg_fused = counts["fused"][1] / per_call
     log(f"[measure] one damped solve: unfused {counts['unfused'][0]} K2 launches "
         f"(C = launches - 3 = {cg_unfused:g} CG iterations), fused {counts['fused'][0]} K2 "
-        f"and {counts['fused'][1]} K3 launches ({cg_fused:g} calls of four)")
+        f"and {counts['fused'][1]} K3 launches ({cg_fused:g} calls of {per_call})")
     if counts["fused"][0] != 3 or abs(cg_fused - cg_unfused) > 1:
         fail("one damped solve breaks the launch rule (unfused 3 + C K2 launches; fused 3 "
              "K2 launches and C calls of K3)")
-    return dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound, bound_by=by,
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                bound_ms=bound, bound_by=by, design_floor_ms=floor, launches_per_call=per_call,
                 max_abs_err=err, fused_vs_unfused=delta, fused_vs_unfused_rel=delta_rel,
                 O=O, R=O // L1, L=L, M=M, P=P, I=I, cg_unfused=cg_unfused, cg_fused=cg_fused)
 
@@ -1177,8 +1227,10 @@ def main():
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
         "max_abs_err": m3["max_abs_err"], "max_abs_err_cases": k3_err,
-        "ms": m3["ms"], "plain_ms": m3["plain_ms"], "bound_ms": m3["bound_ms"],
-        "bound_by": m3["bound_by"], "library_ms": None, "unfused_ms": m3["unfused_ms"],
+        "ms": m3["ms"], "device_ms": m3["device_ms"], "plain_ms": m3["plain_ms"],
+        "bound_ms": m3["bound_ms"], "bound_by": m3["bound_by"], "library_ms": None,
+        "design_floor_ms": m3["design_floor_ms"],
+        "launches_per_call": m3["launches_per_call"], "unfused_ms": m3["unfused_ms"],
         "fused_vs_unfused_max_abs": m3["fused_vs_unfused"],
         "fused_vs_unfused_rel": m3["fused_vs_unfused_rel"],
         "shape": {k: m3[k] for k in ("O", "R", "L", "M", "P", "I")},

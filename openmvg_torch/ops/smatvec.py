@@ -3,47 +3,60 @@ plain version.
 
 Counterpart: openmvg_tpu/ops/pallas_smatvec.py::s_matvec_halves (the Pallas
 TPU kernels `_kernel_a` and `_kernel_b`, with the helpers `pack_slots` and
-`plan`).  The CUDA source is openmvg_torch/csrc/smatvec.cu; it is built with
-nvcc for sm_90a into openmvg_torch/_build/ at first use and loaded with
-ctypes (plain C interface, no PyTorch headers).
+`plan`).  The CUDA source is openmvg_torch/csrc/smatvec.cu (with K2's device
+code from csrc/seg_sum.cuh); it is built with nvcc for sm_90a into
+openmvg_torch/_build/ at first use and loaded with ctypes (plain C
+interface, no PyTorch headers).
 
 Contract: for the reduced camera system of a bundle adjustment in the
 point-major layout (sfm/ba.py::point_major_layout: O = L1 * R slots, row r
 owning slots [r R, (r + 1) R), all of point row_point[r]),
 
-    (sp (P, 6), si (I, 8)) = Jc^T (u - Jx Hpp^-1 Jx^T u),   u = Jc v,
+    (sp (P, 6), si (I, 8)) = Jc^T e,   e = u - Jx Hpp^-1 Jx^T u,   u = Jc v,
 
 v = (vp (P, 6), vi (I, 8)), Jc = [Jp | Ji] per slot; the caller adds the
 O(P) terms lam D v and Hprior v.  The rows are folded into points through
-the group table groups (L, M), whose entries >= L1 add nothing.  Ids
-outside [0, P) or [0, I) contribute nothing.
+the group table groups (L, M), whose entries outside [0, L1) add nothing.
+Ids outside [0, P) or [0, I) contribute nothing.
 
 Two input forms.  The reference packs every slot into one (O, 36) float32
 row [Jp 12 | Ji 16 | Jx 6 | pose id | intrinsic id] (pack_slots) so that
 Pallas stages one 128-lane tile; parity tests feed that form to both
 packages through unpack_slots.  The kernel and smatvec read the blocks and
 the int32 ids directly: jp (O, 2, 6) or (O, 12), ji (O, 2, 8) or (O, 16),
-jx (O, 2, 3) or (O, 6), float32.  smatvec_plan holds the int32 copies and
-kernel K2's plans of the pose and intrinsic ids (the kernel's last pass runs
-over them), built once per solve.
+jx (O, 2, 3) or (O, 6), float32.
+
+The kernel is two launches a call (see the note of smatvec.cu): a pass over
+tiles of whole points that writes e (O, 2), then kernel K2's camera sums of
+J^T e.  smatvec_plan, built once per solve, holds what does not change
+between the CG iterations: the int32 ids, the tile plan (tile_plan, which
+also checks that the group table is the contiguous point-major form that
+sfm/ba.py::build_pt_obs makes, and raises ValueError otherwise), kernel K2's
+plans of the pose and intrinsic ids, and on the card the e buffer and K2's
+chunk partials, so that a call allocates only its two outputs.  Like K2's
+arrival counters, that scratch serves one stream at a time: a plan must not
+serve two calls in flight on two streams.
 
 smatvec takes the plain version only for CPU tensors.  For a CUDA tensor it
 launches the kernel or raises; there is no fallback.
 """
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from openmvg_torch.ops import seg_sum as k2
 from openmvg_torch.utils.build import NVCC_FLAGS, build_shared, nvcc
 
 PACK_F = 36                       # [jp 0:12 | ji 12:28 | jx 28:34 | ids 34:36]
+TILE = 1024                       # slots of one tile (smatvec.cu kTile)
 
 # Kernel launches since import (or since the caller last set it to 0): a
-# call is four launches (rows, points, camera chunks, fold); one with
-# nothing to do is skipped.
+# call is two launches (the point-owned tiles, then K2's camera sums on e;
+# K2's own LAUNCHES does not count the second); a call without poses and
+# intrinsics launches nothing.
 LAUNCHES = 0
 # ptxas report (registers, shared memory, spills) of the last build.
 BUILD_LOG = ""
@@ -57,10 +70,15 @@ def build():
     if _lib is not None:
         return _lib
     lib, BUILD_LOG = build_shared("smatvec.cu", nvcc(), NVCC_FLAGS)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.omt_smatvec_f32
-    fn.argtypes = [vp] * 18 + [ci] * 8 + [vp] * 7
-    fn.restype = ci
+    fn.argtypes = [ctypes.POINTER(_Tables)] + [ctypes.c_void_p] * 9
+    fn.restype = ctypes.c_int
+    for fn in (lib.omt_smatvec_tile_slots, lib.omt_smatvec_tables_bytes):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    if lib.omt_smatvec_tile_slots() != TILE or \
+            lib.omt_smatvec_tables_bytes() != ctypes.sizeof(_Tables):
+        raise RuntimeError("smatvec.cu and ops/smatvec.py disagree on the tile size or "
+                           "the table layout")
     _lib = lib
     return lib
 
@@ -84,7 +102,7 @@ def unpack_slots(packed):
             packed[:, 35].long())
 
 
-def _plain(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, sign):
+def _e(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, sign):
     O, L1 = jp.shape[0], row_point.shape[0]
     R, L = O // L1, hpp_inv.shape[0]
     P, I = vp.shape[0], vi.shape[0]
@@ -99,9 +117,27 @@ def _plain(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, s
     g = torch.where((groups >= 0) & (groups < L1), groups.long(), L1)
     y = torch.einsum("lij,lj->li", hpp_inv, rs[g].sum(1))                      # (L, 3)
     y_slot = y[row_point.long().clamp(0, L - 1)].repeat_interleave(R, 0)      # (O, 3)
-    e = u + sign * (jx * y_slot[:, None, :]).sum(-1)
-    return (k2.seg_sum_plain((jp * e[:, :, None]).sum(1), pose_ids, P),
-            k2.seg_sum_plain((ji * e[:, :, None]).sum(1), intr_ids, I))
+    return u + sign * (jx * y_slot[:, None, :]).sum(-1)
+
+
+def _plain(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, sign):
+    O = jp.shape[0]
+    e = _e(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, sign)
+    return k2.camera_jtu_plain(jp.reshape(O, 2, 6), ji.reshape(O, 2, 8), e, pose_ids,
+                               intr_ids, vp.shape[0], vi.shape[0])
+
+
+def smatvec_e_plain(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups):
+    """e = u - Jx Hpp^-1 Jx^T u (O, 2), what the kernel's first launch
+    writes, in plain torch; K2's camera_jtu_plain of it is smatvec_plain."""
+    return _e(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, -1.0)
+
+
+def smatvec_e_magnitudes(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups):
+    """The sum of magnitudes behind each entry of e (see
+    smatvec_magnitudes)."""
+    return _e(jp.abs(), ji.abs(), jx.abs(), pose_ids, intr_ids, vp.abs(), vi.abs(),
+              hpp_inv.abs(), row_point, groups, 1.0)
 
 
 def smatvec_plain(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups):
@@ -122,30 +158,120 @@ def smatvec_magnitudes(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_poin
 # plan + wrapper
 # ---------------------------------------------------------------------------
 
+_PTRS = ("pose_ids", "intr_ids", "pt_row0", "tiles", "e", "part_p", "part_i",
+         "p_perm", "p_start", "p_end", "p_seg", "p_off", "p_empty", "p_counters",
+         "i_perm", "i_start", "i_end", "i_seg", "i_off", "i_empty", "i_counters")
+_INTS = ("O", "R", "L1", "L", "n_tiles", "n_pose", "n_intr",
+         "p_n_chunks", "p_n_empty", "i_n_chunks", "i_n_empty")
+
+
+class _Tables(ctypes.Structure):
+    """smatvec.cu's K3Tables: the plan's device pointers and counts, handed
+    to the kernel as one pointer."""
+    _fields_ = [(n, ctypes.c_void_p) for n in _PTRS] + [(n, ctypes.c_int32) for n in _INTS]
+
+
 class SmatvecPlan(NamedTuple):
     pose_ids: torch.Tensor     # (O,) int32
     intr_ids: torch.Tensor     # (O,) int32
-    row_point: torch.Tensor    # (L1,) int32
-    groups: torch.Tensor       # (L, M) int32
+    n_rows: int                # L1
     plan_p: k2.SegSumPlan      # K2 plan of pose_ids over n_pose segments
     plan_i: k2.SegSumPlan      # K2 plan of intr_ids over n_intr segments
+    pt_row0: torch.Tensor      # (L + 1,) int32 first row of each point
+    tiles: torch.Tensor        # (n_tiles, 4) int32 first row, end row, first point, end point
+    e: Optional[torch.Tensor] = None        # (O, 2) float32 scratch (card only)
+    part_p: Optional[torch.Tensor] = None   # K2 chunk partials of the pose half
+    part_i: Optional[torch.Tensor] = None
+    tables: Optional[_Tables] = None        # the pointers above, for the kernel
+
+
+def tile_plan(row_point, groups, n_slots, tile=TILE):
+    """Check that the tables are the contiguous point-major form that
+    sfm/ba.py::build_pt_obs makes, and cut the rows into tiles at point
+    boundaries.  The form: R = n_slots / L1 a power of two up to 32; point
+    l owns n_l >= 1 rows, groups[l, c] = groups[l, 0] + c for c < n_l and
+    an entry outside [0, L1) after that; the points' rows follow each other
+    in point order from row 0 to L1, and row_point agrees.  Tiles take
+    whole points greedily, in order, up to `tile` slots; a point of more
+    slots than that gets a tile to itself.  Integer work on the host (one
+    copy of the tables from the device).  Returns (pt_row0 (L + 1,),
+    tiles (n_tiles, 4): first row, end row, first point, end point), int32
+    on the tables' device; raises ValueError for any other form."""
+    L1 = row_point.shape[0]
+    if groups.dim() != 2 or L1 == 0 or n_slots % L1:
+        raise ValueError(f"{n_slots} slots and {L1} rows do not form a point-major layout")
+    R = n_slots // L1
+    if R > 32 or R & (R - 1):
+        raise ValueError(f"{R} slots a row: the kernel takes a power of two up to 32")
+    L, M = groups.shape
+    g = groups.cpu().numpy().astype(np.int64)
+    rp = row_point.cpu().numpy().astype(np.int64)
+    inside = (g >= 0) & (g < L1)
+    n = inside.sum(1)
+    off = np.zeros(L + 1, np.int64)
+    np.cumsum(n, out=off[1:])
+    col = np.arange(M)
+    if not (np.array_equal(inside, col < n[:, None]) and bool((n >= 1).all())
+            and off[-1] == L1
+            and np.array_equal(np.where(inside, g, 0), np.where(inside, off[:-1, None] + col, 0))
+            and np.array_equal(rp, np.repeat(np.arange(L), n))):
+        raise ValueError("the group table is not the contiguous point-major form of "
+                         "sfm/ba.py::build_pt_obs (each point's rows in a run of its own, "
+                         "in point order, sentinels after them)")
+    ends = off[1:] * R
+    tiles = []
+    l = 0
+    while l < L:
+        l2 = max(int(np.searchsorted(ends, off[l] * R + tile, side="right")), l + 1)
+        tiles.append((off[l], off[l2], l, l2))
+        l = l2
+    dev, i32 = groups.device, torch.int32
+    return (torch.as_tensor(off, dtype=i32).to(dev),
+            torch.as_tensor(np.asarray(tiles, np.int64).reshape(-1, 4), dtype=i32).to(dev))
 
 
 def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plans=None):
-    """The kernel's int32 tables and K2 plans (seg_plans: the (pose,
-    intrinsic) K2 plans a bundle adjustment problem already holds)."""
+    """The kernel's int32 tables, tile plan and K2 plans (seg_plans: the
+    (pose, intrinsic) K2 plans a bundle adjustment problem already holds),
+    and on the card its scratch.  Raises ValueError when the tables are not
+    the contiguous point-major form (tile_plan)."""
     i32 = torch.int32
+    O = pose_ids.shape[0]
+    pt_row0, tiles = tile_plan(row_point, groups, O)
     plan_p, plan_i = seg_plans if seg_plans is not None else (
         k2.seg_sum_plan(pose_ids, n_pose), k2.seg_sum_plan(intr_ids, n_intr))
-    return SmatvecPlan(pose_ids=pose_ids.to(i32).contiguous(),
-                       intr_ids=intr_ids.to(i32).contiguous(),
-                       row_point=row_point.to(i32).contiguous(),
-                       groups=groups.to(i32).contiguous(), plan_p=plan_p, plan_i=plan_i)
+    plan = SmatvecPlan(pose_ids=pose_ids.to(i32).contiguous(),
+                       intr_ids=intr_ids.to(i32).contiguous(), n_rows=row_point.shape[0],
+                       plan_p=plan_p, plan_i=plan_i, pt_row0=pt_row0, tiles=tiles)
+    if pose_ids.device.type != "cuda":
+        return plan
+    if n_pose and n_intr and plan_p.counters.data_ptr() == plan_i.counters.data_ptr():
+        raise ValueError("the two halves need K2 plans of their own: one launch counts both "
+                         "on their plans' arrival counters")
+    dev, f32 = pose_ids.device, torch.float32
+    plan = plan._replace(
+        e=torch.empty((O, 2), dtype=f32, device=dev),
+        part_p=torch.empty((max(plan_p.chunk_start.shape[0], 1), 6), dtype=f32, device=dev),
+        part_i=torch.empty((max(plan_i.chunk_start.shape[0], 1), 8), dtype=f32, device=dev))
+    ptr = {"pose_ids": plan.pose_ids, "intr_ids": plan.intr_ids, "pt_row0": pt_row0,
+           "tiles": tiles, "e": plan.e, "part_p": plan.part_p, "part_i": plan.part_i}
+    for h, kp in (("p", plan_p), ("i", plan_i)):
+        ptr.update({f"{h}_perm": kp.perm, f"{h}_start": kp.chunk_start,
+                    f"{h}_end": kp.chunk_end, f"{h}_seg": kp.chunk_seg,
+                    f"{h}_off": kp.seg_chunk_off, f"{h}_empty": kp.empty,
+                    f"{h}_counters": kp.counters})
+    ints = dict(O=O, R=O // plan.n_rows, L1=plan.n_rows, L=groups.shape[0],
+                n_tiles=tiles.shape[0], n_pose=n_pose, n_intr=n_intr,
+                p_n_chunks=plan_p.chunk_start.shape[0], p_n_empty=plan_p.empty.shape[0],
+                i_n_chunks=plan_i.chunk_start.shape[0], i_n_empty=plan_i.empty.shape[0])
+    tables = _Tables(*[ptr[n].data_ptr() for n in _PTRS], *[ints[n] for n in _INTS])
+    return plan._replace(tables=tables)
 
 
 def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, plan=None):
     """(sp (P, 6), si (I, 8)) of the contract above.  `plan` (smatvec_plan
-    of the same ids and tables) saves its construction on repeated calls."""
+    of the same ids and tables) saves its construction on repeated calls;
+    after a call on the card, plan.e holds the call's e."""
     global LAUNCHES
     O = jp.shape[0]
     L1 = row_point.shape[0]
@@ -174,29 +300,22 @@ def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, 
         plan = smatvec_plan(pose_ids, intr_ids, row_point, groups, P, I)
     pp, pi = plan.plan_p, plan.plan_i
     if (pp.num != P or pi.num != I or pp.n_rows != O or pi.n_rows != O
-            or plan.row_point.shape != (L1,) or plan.groups.shape != groups.shape):
-        raise ValueError("the plan was built for other ids, tables or counts")
+            or plan.n_rows != L1 or plan.pt_row0.shape != (L + 1,)
+            or plan.tables is None or plan.e.device != jp.device):
+        raise ValueError("the plan was built for other ids, tables, counts or device")
     jp, ji, jx = jp.contiguous(), ji.contiguous(), jx.contiguous()
     vp, vi, hpp_inv = vp.contiguous(), vi.contiguous(), hpp_inv.contiguous()
-    ncp, nci = pp.chunk_start.shape[0], pi.chunk_start.shape[0]
-    dev = jp.device
-    row_sums = torch.empty((L1, 3), dtype=torch.float32, device=dev)
-    y = torch.empty((L, 3), dtype=torch.float32, device=dev)
-    part_p = torch.empty((max(ncp, 1), 6), dtype=torch.float32, device=dev)
-    part_i = torch.empty((max(nci, 1), 8), dtype=torch.float32, device=dev)
-    sp = torch.empty((P, 6), dtype=torch.float32, device=dev)
-    si = torch.empty((I, 8), dtype=torch.float32, device=dev)
-    lib = build()
-    err = lib.omt_smatvec_f32(
-        jp.data_ptr(), ji.data_ptr(), jx.data_ptr(), plan.pose_ids.data_ptr(),
-        plan.intr_ids.data_ptr(), vp.data_ptr(), vi.data_ptr(), hpp_inv.data_ptr(),
-        plan.row_point.data_ptr(), plan.groups.data_ptr(), pp.perm.data_ptr(),
-        pp.chunk_start.data_ptr(), pp.chunk_end.data_ptr(), pp.seg_chunk_off.data_ptr(),
-        pi.perm.data_ptr(), pi.chunk_start.data_ptr(), pi.chunk_end.data_ptr(),
-        pi.seg_chunk_off.data_ptr(), L1, O // L1, L, groups.shape[1], P, I, ncp, nci,
-        row_sums.data_ptr(), y.data_ptr(), part_p.data_ptr(), part_i.data_ptr(),
-        sp.data_ptr(), si.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if jp.data_ptr() % 16 or ji.data_ptr() % 16 or jx.data_ptr() % 8:
+        raise ValueError("jp and ji must start on a 16-byte boundary, jx on an 8-byte one")
+    sp = torch.empty((P, 6), dtype=torch.float32, device=jp.device)
+    si = torch.empty((I, 8), dtype=torch.float32, device=jp.device)
+    if P + I == 0:
+        return sp, si
+    err = build().omt_smatvec_f32(
+        ctypes.byref(plan.tables), jp.data_ptr(), ji.data_ptr(), jx.data_ptr(), vp.data_ptr(),
+        vi.data_ptr(), hpp_inv.data_ptr(), sp.data_ptr(), si.data_ptr(),
+        torch.cuda.current_stream(jp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"smatvec kernel launch failed: cudaError {err}")
-    LAUNCHES += 2 + int(ncp + nci > 0) + int(P * 6 + I * 8 > 0)
+    LAUNCHES += 2
     return sp, si

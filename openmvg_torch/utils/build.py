@@ -3,8 +3,8 @@
 The CUDA kernels (csrc/*.cu, nvcc for sm_90a) and the host library
 (csrc/native.cpp, g++ with OpenMP) are compiled into the git-ignored
 openmvg_torch/_build/ the first time they are needed, named by a hash of
-the source and the flags, and loaded with ctypes.  A failed build raises;
-nothing falls back.
+the source, every *.cuh header in csrc/ and the flags (build_tag), and loaded
+with ctypes.  A failed build raises; nothing falls back.
 """
 
 import ctypes
@@ -41,13 +41,28 @@ def gxx():
     return cand
 
 
+def build_tag(source, flags, csrc=CSRC):
+    """The name of a build: a hash of `source` (a file name under `csrc`),
+    of every header there (*.cuh: a source may include any of them, and a
+    header changed under a library of the old name would load a stale
+    build) and of the flags."""
+    h = hashlib.sha256()
+    for name in [source] + sorted(f for f in os.listdir(csrc) if f.endswith(".cuh")):
+        with open(os.path.join(csrc, name), "rb") as f:
+            data = f.read()
+        h.update(f"{name}\0{len(data)}\0".encode())
+        h.update(data)
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:12]
+
+
 def build_shared(source, compiler, flags):
-    """Compile `source` (a file name under csrc/) into a shared library in
-    _build/ unless one of the same source and flags is there; returns
-    (ctypes.CDLL, compiler log or "" when it was already built)."""
+    """Compile `source` (a file name under csrc/, which is on the include
+    path) into a shared library in _build/ unless one of the same
+    build_tag is there; returns (ctypes.CDLL, compiler log or "" when it
+    was already built)."""
     path = os.path.join(CSRC, source)
-    with open(path, "rb") as f:
-        tag = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    tag = build_tag(source, flags)
     stem = os.path.splitext(source)[0]
     so = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
     log = ""
@@ -56,7 +71,7 @@ def build_shared(source, compiler, flags):
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            r = subprocess.run([compiler, *flags, "-o", tmp, path],
+            r = subprocess.run([compiler, *flags, "-I", CSRC, "-o", tmp, path],
                                capture_output=True, text=True)
             log = r.stdout + r.stderr
             if r.returncode != 0:

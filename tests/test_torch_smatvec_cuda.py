@@ -9,8 +9,9 @@ conftest imports it, hence --noconftest):
 The reference is the plain version on the same inputs in float64.  The
 kernel's float32 rounding scales with the magnitudes behind each output
 (smatvec_magnitudes, S), not with the output, which cancels, so it is held
-to 1e-5 (1 + S).  Two launches on one input must be bitwise equal (the
-kernel uses no atomics).
+to 1e-5 (1 + S); the e buffer its first launch writes is held the same way
+against smatvec_e_plain.  Two calls on one input must be bitwise equal (the
+kernel uses no float atomics), and a call is two launches.
 """
 
 import numpy as np
@@ -23,14 +24,19 @@ from openmvg_torch.ops import smatvec as k3
 pytestmark = pytest.mark.cuda
 
 # name, poses, intrinsics, slots a row, points, most observations a point,
-# kind: "one" = one point holds every observation
+# kind: "one" = one point holds every observation, "hub" = point L // 2
+# holds HUB_OBS of them (more than one tile of the kernel's first launch)
 CASES = [
     ("P1_I1_R4", 1, 1, 4, 3000, 6, None),
     ("P100_I1_R8_multirow", 100, 1, 8, 20000, 40, None),
     ("P100_I8_R16", 100, 8, 16, 8000, 50, None),
     ("P1500_I8_R32", 1500, 8, 32, 20000, 70, None),
     ("P100_I1_R4_one_point_holds_all", 100, 1, 4, 1, 40000, "one"),
+    ("P7_I2_R8_tracks_1_40_across_tiles", 7, 2, 8, 3000, 40, None),
+    ("P5_I1_R32_one_point_over_a_tile", 5, 1, 32, 1, 1500, "one"),
+    ("P30_I2_R8_hub_among_tracks", 30, 2, 8, 2000, 12, "hub"),
 ]
+HUB_OBS = 5000
 
 
 def k3_case(P, I, R, L, max_obs, kind, seed):
@@ -38,9 +44,11 @@ def k3_case(P, I, R, L, max_obs, kind, seed):
     ceil(n / R) rows of R slots; the slack slots carry zero Jacobians and
     pose 0 as sfm/ba.py::point_major_layout lays them out; group entries
     past a point's rows are the sentinel L1; pose P // 2 has no
-    observation when P > 1."""
+    observation when P > 1 (and its output must be zero)."""
     rng = np.random.default_rng(seed)
     n = np.full(L, max_obs) if kind == "one" else rng.integers(1, max_obs + 1, L)
+    if kind == "hub":
+        n[L // 2] = HUB_OBS
     nrow = -(-n // R)
     L1, M = int(nrow.sum()), int(nrow.max())
     start = np.concatenate([[0], np.cumsum(nrow)[:-1]])
@@ -82,7 +90,7 @@ def test_kernel_matches_plain_and_repeats(dev, name, P, I, R, L, max_obs, kind):
     got = k3.smatvec(*args)
     again = k3.smatvec(*args, plan=plan)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES == before + 8
+    assert k3.LAUNCHES == before + 4
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     d = [a.double().cpu() if a.is_floating_point() else a.cpu() for a in args]
@@ -91,6 +99,8 @@ def test_kernel_matches_plain_and_repeats(dev, name, P, I, R, L, max_obs, kind):
     for g, r, s in zip(got, ref, mag):
         assert bool(torch.isfinite(g).all())
         assert bool(((g.double().cpu() - r).abs() <= 1e-5 * (1 + s)).all())
+    e_ref, e_mag = k3.smatvec_e_plain(*d), k3.smatvec_e_magnitudes(*d)
+    assert bool(((plan.e.double().cpu() - e_ref).abs() <= 1e-5 * (1 + e_mag)).all())
     if P > 1:
         assert bool((got[0][P // 2] == 0).all())       # the pose without observations
 
@@ -101,3 +111,6 @@ def test_wrapper_raises_on_unsupported(dev):
         k3.smatvec(args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         k3.smatvec(*args[:5], args[5][:, :5], *args[6:])
+    cpu_plan = k3.smatvec_plan(*[a.cpu() for a in (args[3], args[4], args[8], args[9])], 4, 1)
+    with pytest.raises(ValueError, match="plan"):
+        k3.smatvec(*args, plan=cpu_plan)
