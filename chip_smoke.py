@@ -44,29 +44,46 @@ last line is printed):
             just before and read just after; checks the result against the
             renderer's ground truth (>= 95% of filtered matches within 4 px
             of their epipolar line, >= 90% of pairs kept); then runs the
-            features, matches and filter stages once more under
-            torch.profiler, prints each one's device busy share and
-            heaviest device ops, and requires the re-run to write the same
-            .feat/.desc/matches files byte for byte
+            matches and filter stages once more under torch.profiler, prints
+            each one's device busy share and heaviest device ops, and
+            requires the re-run to write the same matches files byte for
+            byte
   sfm       the port's sfm -s INCREMENTAL, color and eval on cuda, every
             kernel's launch count set to 0 just before and read just after;
             prints the engine's stage seconds and accepted f64 polish steps
             and requires >= 98 of 100 poses, eval position_rmse <= 0.006
             (0.2% of the 3.0 ring radius), reprojection rmse < 1 px, K2
             launched, >= 1 accepted polish step and one colour per landmark
-            in colorized.ply; the fused S-matvec (K3) is off, as by
-            default, and must not launch.  (Its profiled re-run was
-            dropped to keep the whole run near half the time limit; the
-            global phase profiles its own sfm stage.)
-  global    with OMT_FUSED_SMATVEC=1 (this phase and its profiled re-run
-            only): filter -g e on the pipeline's putative matches, sfm -s
-            GLOBAL, color and eval on cuda, every kernel's count set to 0
-            just before and read just after; prints the share of pairs the
-            essential filter kept and the engine's stage seconds, holds the
-            sfm phase's gates with K2 and K3 both launched, and re-runs the
-            sfm stage under torch.profiler in a fresh process (device busy
-            share, heaviest device ops) and reports whether it wrote the
-            same sfm_data.json
+            and camera in colorized.ply; the fused S-matvec (K3) is off, as
+            by default, and must not launch
+  sfm2      sfm -s INCREMENTALV2 --output_format bin on the same matches,
+            then color and eval --html reading sfm_data.bin: the sfm gates
+            (K3 off), the reconstruction directory holding sfm_data.bin,
+            cloud_and_poses.ply and SfMReconstruction_Report.html, the eval
+            HTML written, and convert of the .bin to .json reading back the
+            same poses and landmarks exactly
+  global    with OMT_FUSED_SMATVEC=1 (this phase only): filter -g e on the
+            pipeline's putative matches, sfm -s GLOBAL, color and eval on
+            cuda, every kernel's count set to 0 just before and read just
+            after; prints the share of pairs the essential filter kept and
+            the engine's stage seconds, and holds the sfm phase's gates with
+            K2 and K3 both launched
+  stellar   with OMT_FUSED_SMATVEC=1 (this phase only): sfm -s STELLAR on the
+            filter f matches, color and eval; the sfm gates but the polish
+            (STELLAR runs none, and must print 0 steps), K2 and K3 launched;
+            prints the pod count and the engine's stage seconds
+  camera3   the one-command main path as users run it, every flag at its
+            default but the focal: pipeline -i images -o run -f <focal>
+            (camera model 3 PINHOLE_RADIAL_K3, NORMAL, EXHAUSTIVE pairs,
+            filter f, INCREMENTAL, color), then eval, on a cut render of 24
+            views of 1024^2 (276 pairs; the cut is printed); every kernel's
+            count set to 0 just before the pipeline and read just after;
+            >= 23 of 24 poses, position_rmse <= 0.006, rmse < 1 px, K1 and
+            K2 launched, the scene's intrinsic PINHOLE_RADIAL_K3 with its
+            k1..k3 printed (the images have no distortion); the polish
+            steps are printed, not gated (the polish takes one shared
+            PINHOLE only); prints each stage's seconds and the peak device
+            memory
   measure   K1 on the matches stage's own descriptor stack and pair list
             (beside its bound, the epilogue floor); K2's fused camera_jtu
             and camera_jtj on the final INCREMENTAL bundle adjustment's own
@@ -82,9 +99,17 @@ last line is printed):
             torch.profiler) and the bound (for K1 its epilogue floor, for
             K3 its design floor beside it), for the kernels line
 
-The last three lines of standard output are the kernels JSON, then
-nvidia-smi's name and power limit, then {"ok": true, "device": {...}}.  It
-imports nothing of JAX or openmvg_tpu.
+Cut to keep the whole run near half of its 1,200 s limit: the features
+stage's profiled re-run (the matches and filter stages keep theirs), the
+profiled re-runs of the sfm stages (about 80 s each), and camera3's scale:
+24 views, not 100 (its exhaustive pairs grow with the square of the
+views).
+
+The last three lines of standard output are the kernels JSON (each
+kernel's launches on the main path, and on the sfm2, stellar and camera3
+paths as launches_v2, launches_stellar and launches_camera3; every phase's
+stage and engine seconds), then nvidia-smi's name and power limit, then
+{"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
 """
 
 import argparse
@@ -495,19 +520,19 @@ def phase_pipeline(kernel_mods, n_views, size, work):
     def files():
         out = {}
         for f in sorted(os.listdir(md)):
-            if f.endswith((".feat", ".desc", ".bin")):
+            if f.endswith(".bin"):
                 with open(os.path.join(md, f), "rb") as fh:
                     out[f] = fh.read()
         return out
 
     written = files()
-    profile_stages([s for s in stages if s[0] in ("features", "matches", "filter")])
+    profile_stages([s for s in stages if s[0] in ("matches", "filter")])
     again = files()
     changed = [f for f in written if again.get(f) != written[f]]
     if changed:
         fail(f"the re-run wrote {len(changed)} different file(s), e.g. {changed[:3]}")
-    log(f"[pipeline] the re-run wrote the same {len(written)} .feat/.desc/.bin files "
-        "byte for byte")
+    log(f"[pipeline] the re-run wrote the same {len(written)} matches .bin files byte for "
+        "byte")
 
     # the matches stage's own K1 inputs, for the measure phase
     descs = [load_descs(os.path.join(md, f"img_{v:02d}.desc")) for v in range(n_views)]
@@ -809,34 +834,16 @@ def phase_kernel_k3(smatvec, dev):
     return worst
 
 
-def phase_sfm(kernel_mods, run, n_views, engine="INCREMENTAL", matches="matches.f.bin",
-              pre=(), need=("seg_sum",), recon_name="recon", profile=True):
-    """[pre stages ->] sfm -> color -> eval on the card, with every kernel's
-    count set to 0 just before and read just after, and the gates of the
-    module note; `need` names the kernels that must have launched.  With
-    `profile`, the sfm stage runs once more under the profiler."""
+def run_stages(kernel_mods, stages):
+    """Runs CLI stages on the card, each one's standard output kept (and
+    passed on), with every kernel's count set to 0 just before the first
+    and read just after the last.  Returns (seconds, printed, launches)."""
     import contextlib
 
-    import numpy as np
     import torch
 
     from openmvg_torch import cli
-    from openmvg_torch.io.ply import load_ply_vertices
-    from openmvg_torch.io.sfm_data import load_sfm_data
-    from openmvg_torch.sfm.scene import rmse
-    from openmvg_torch.utils.logging import stage_times
 
-    tag = f"[{engine.lower() if engine != 'INCREMENTAL' else 'sfm'}]"
-    recon = os.path.join(run["work"], recon_name)
-    recon_json = os.path.join(recon, "sfm_data.json")
-    ply = os.path.join(recon, "colorized.ply")
-    stages = list(pre) + [
-        ("sfm", ["sfm", "-i", run["sfm"], "-m", run["md"],
-                 "-M", os.path.join(run["md"], matches), "-o", recon,
-                 "-s", engine]),
-        ("color", ["color", "-i", recon_json, "-o", ply]),
-        ("eval", ["eval", "-i", recon_json, "-g", run["gtdir"]]),
-    ]
     secs = {}
     printed = {name: Tee(sys.stdout) for name, _ in stages}
     for m in kernel_mods:        # every kernel's count, just before the path
@@ -851,57 +858,91 @@ def phase_sfm(kernel_mods, run, n_views, engine="INCREMENTAL", matches="matches.
         if rc != 0:
             fail(f"stage {name} returned {rc}")
     launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in kernel_mods}  # just after
-    stats = json.loads(printed["eval"].getvalue())
-    done = re.search(r"SfM done .* (\d+) f64 polish steps, (\d+) rounds",
-                     printed["sfm"].getvalue())
+    return secs, printed, launches
+
+
+SFM_DONE = re.compile(r"SfM done .* (\d+) f64 polish steps, (\d+) rounds(?:, (\d+) pods)?")
+
+
+def check_reconstruction(tag, scene_path, ply, stats, n_views, need, launches, sfm_out,
+                         polish_gate=True, min_poses=None):
+    """The gates of the module note on one reconstruction: poses (at least
+    min_poses, default 98% of the views), eval
+    position_rmse, reprojection rmse, the kernels in `need` launched, the
+    f64 polish (unless polish_gate is False) and one colour per landmark
+    and camera.  Returns (scene, polish steps, rounds, pods or None)."""
+    import numpy as np
+
+    from openmvg_torch.io.ply import load_ply_vertices
+    from openmvg_torch.io.sfm_data import load_sfm_data
+    from openmvg_torch.sfm.scene import rmse
+
+    done = SFM_DONE.search(sfm_out)
     if done is None:
-        fail("the sfm stage printed no summary line")
+        fail(f"{tag} the sfm stage printed no summary line")
     polish_steps, rounds = int(done.group(1)), int(done.group(2))
+    pods = int(done.group(3)) if done.group(3) else None
+    scene = load_sfm_data(scene_path)
+    n_posed = int(scene.pose_valid.sum())
+    err_px = rmse(scene)
+    pts, _ = load_ply_vertices(ply)
+    log(f"{tag} {n_posed}/{n_views} poses, {scene.n_landmarks} landmarks, rmse "
+        f"{err_px:.4f} px, position_rmse {stats.get('position_rmse')}, "
+        f"{polish_steps} accepted f64 polish steps, {rounds} rounds"
+        + (f", {pods} pods" if pods is not None else "") + f", launches {launches}")
+    if n_posed < (math.ceil(0.98 * n_views) if min_poses is None else min_poses):
+        fail(f"{tag} only {n_posed} of {n_views} poses reconstructed")
+    if not stats.get("ok") or not stats["position_rmse"] <= 0.006:
+        fail(f"{tag} position_rmse {stats.get('position_rmse')} above 0.006")
+    if not err_px < 1.0:
+        fail(f"{tag} reprojection rmse {err_px:.4f} px is not below 1 px")
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"{tag} the sfm stage did not launch {name}")
+    if polish_gate and polish_steps < 1:
+        fail(f"{tag} the f64 polish accepted no step")
+    if len(pts) != scene.n_landmarks + n_posed or not np.isfinite(pts).all():
+        fail(f"{tag} colorized.ply holds {len(pts)} vertices for {scene.n_landmarks} "
+             f"landmarks and {n_posed} cameras")
+    return scene, polish_steps, rounds, pods
+
+
+def phase_sfm(kernel_mods, run, n_views, engine="INCREMENTAL", matches="matches.f.bin",
+              pre=(), need=("seg_sum",), recon_name="recon", tag="[sfm]", fmt="json",
+              html=None, polish_gate=True):
+    """[pre stages ->] sfm -> color -> eval on the card, with every kernel's
+    count set to 0 just before and read just after, and the gates of the
+    module note (check_reconstruction); `need` names the kernels that must
+    have launched.  fmt "bin" writes and reads sfm_data.bin; `html` is
+    eval's --html file."""
+    from openmvg_torch.utils.logging import stage_times
+
+    recon = os.path.join(run["work"], recon_name)
+    scene_path = os.path.join(recon, f"sfm_data.{fmt}")
+    ply = os.path.join(recon, "colorized.ply")
+    stages = list(pre) + [
+        ("sfm", ["sfm", "-i", run["sfm"], "-m", run["md"],
+                 "-M", os.path.join(run["md"], matches), "-o", recon, "-s", engine]
+         + (["--output_format", fmt] if fmt != "json" else [])),
+        ("color", ["color", "-i", scene_path, "-o", ply]),
+        ("eval", ["eval", "-i", scene_path, "-g", run["gtdir"]]
+         + (["--html", html] if html else [])),
+    ]
+    secs, printed, launches = run_stages(kernel_mods, stages)
+    stats = json.loads(printed["eval"].getvalue())
     log(f"{tag} stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
     log(f"{tag} engine stage seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_times.items()))
-    scene = load_sfm_data(recon_json)
-    n_posed = int(scene.pose_valid.sum())
-    err_px = rmse(scene)
-    pts, cols = load_ply_vertices(ply)
-    log(f"{tag} {n_posed}/{n_views} poses, {scene.n_landmarks} landmarks, rmse "
-        f"{err_px:.4f} px, position_rmse {stats.get('position_rmse')}, "
-        f"{polish_steps} accepted f64 polish steps, {rounds} rounds, "
-        f"launches {launches}")
-    if n_posed < math.ceil(0.98 * n_views):
-        fail(f"only {n_posed} of {n_views} poses reconstructed")
-    if not stats.get("ok") or not stats["position_rmse"] <= 0.006:
-        fail(f"position_rmse {stats.get('position_rmse')} above 0.006")
-    if not err_px < 1.0:
-        fail(f"reprojection rmse {err_px:.4f} px is not below 1 px")
-    for name in need:
-        if launches[name] <= 0:
-            fail(f"the {engine} sfm stage did not launch {name}")
-    if polish_steps < 1:
-        fail("the f64 polish accepted no step")
-    if len(pts) != scene.n_landmarks + n_posed or not np.isfinite(pts).all():
-        fail(f"colorized.ply holds {len(pts)} vertices for {scene.n_landmarks} landmarks "
-             f"and {n_posed} cameras")
-    engine_s = dict(stage_times)
-    if not profile:
-        return dict(secs=secs, launches=launches, engine=engine_s, stats=stats,
-                    scene=scene, polish_steps=polish_steps, rerun_identical=None)
-    # where the sfm stage's time goes: the same stage once more, alone in a
-    # fresh process under torch.profiler, into another directory
-    again = os.path.join(run["work"], recon_name + "_profiled")
-    sfm_argv = dict(stages)["sfm"]
-    profile_stages([("sfm", sfm_argv[:-4] + ["-o", again, "-s", engine])])
-    with open(recon_json, "rb") as f1, open(os.path.join(again, "sfm_data.json"), "rb") as f2:
-        same = f1.read() == f2.read()
-    log(f"{tag} the profiled re-run wrote {'the same' if same else 'a different'} "
-        "sfm_data.json")
-    return dict(secs=secs, launches=launches, engine=engine_s, stats=stats,
-                scene=scene, polish_steps=polish_steps, rerun_identical=same)
+    scene, polish_steps, rounds, pods = check_reconstruction(
+        tag, scene_path, ply, stats, n_views, need, launches, printed["sfm"].getvalue(),
+        polish_gate)
+    return dict(secs=secs, launches=launches, engine=dict(stage_times), stats=stats,
+                scene=scene, polish_steps=polish_steps, rounds=rounds, pods=pods, recon=recon)
 
 
 def phase_global(kernel_mods, run, n_views):
     """filter -g e -> sfm -s GLOBAL -> color -> eval with the fused S-matvec
-    switched on for this phase only (its profiled re-run inherits it)."""
+    switched on for this phase only."""
     from openmvg_torch.io.matches_io import load_matches
 
     md = run["md"]
@@ -911,7 +952,8 @@ def phase_global(kernel_mods, run, n_views):
     os.environ["OMT_FUSED_SMATVEC"] = "1"
     try:
         res = phase_sfm(kernel_mods, run, n_views, engine="GLOBAL", matches="matches.e.bin",
-                        pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global")
+                        pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global",
+                        tag="[global]")
     finally:
         del os.environ["OMT_FUSED_SMATVEC"]
     kept = load_matches(os.path.join(md, "matches.e.bin"))
@@ -921,6 +963,136 @@ def phase_global(kernel_mods, run, n_views):
         f"({100 * len(kept) / max(n_put, 1):.1f}%), {sum(len(m) for m in kept.values())} "
         "matches")
     return res
+
+
+def phase_sfm2(kernel_mods, run, n_views):
+    """sfm -s INCREMENTALV2 --output_format bin -> color and eval --html
+    reading sfm_data.bin, K3 off; the sfm phase's gates, the files the
+    reconstruction directory must hold, and `convert` of the .bin to
+    .json reading back the same poses and landmarks exactly."""
+    import numpy as np
+
+    from openmvg_torch import cli
+    from openmvg_torch.io.sfm_data import load_sfm_data
+
+    html = os.path.join(run["work"], "eval_v2.html")
+    res = phase_sfm(kernel_mods, run, n_views, engine="INCREMENTALV2", recon_name="recon_v2",
+                    tag="[sfm2]", fmt="bin", html=html)
+    if res["launches"]["smatvec"] != 0:
+        fail("[sfm2] K3 launched, where it is off")
+    need = {"sfm_data.bin", "cloud_and_poses.ply", "SfMReconstruction_Report.html"}
+    have = set(os.listdir(res["recon"]))
+    if not need <= have or not os.path.getsize(html):
+        fail(f"[sfm2] missing outputs: {sorted(need - have)}, eval html "
+             f"{os.path.exists(html)}")
+    src = os.path.join(res["recon"], "sfm_data.bin")
+    dst = os.path.join(res["recon"], "converted.json")
+    if cli.main(["convert", "-i", src, "-o", dst]) != 0:
+        fail("[sfm2] convert returned non-zero")
+    a, b = load_sfm_data(src), load_sfm_data(dst)
+    for f in ("pose_valid", "pose_R", "pose_C", "X_valid", "X", "obs_landmark", "obs_view",
+              "obs_x", "obs_feat"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            fail(f"[sfm2] convert .bin -> .json changed {f}")
+    log(f"[sfm2] {sorted(have)} written; eval html {os.path.getsize(html)} B; convert to "
+        ".json read back the same poses and landmarks exactly; K2 launches "
+        f"{res['launches']['seg_sum']}, K3 0")
+    return res
+
+
+def phase_stellar(kernel_mods, run, n_views):
+    """sfm -s STELLAR -> color -> eval on the filter f matches, with the
+    fused S-matvec switched on for this phase only; the sfm phase's gates
+    but the polish (STELLAR has none), K2 and K3 launched."""
+    os.environ["OMT_FUSED_SMATVEC"] = "1"
+    try:
+        res = phase_sfm(kernel_mods, run, n_views, engine="STELLAR", recon_name="recon_stellar",
+                        tag="[stellar]", need=("seg_sum", "smatvec"), polish_gate=False)
+    finally:
+        del os.environ["OMT_FUSED_SMATVEC"]
+    if res["polish_steps"] != 0:
+        fail("[stellar] STELLAR ran an f64 polish; the reference has none")
+    log(f"[stellar] {res['pods']} pods; K2 launches {res['launches']['seg_sum']}, K3 "
+        f"launches {res['launches']['smatvec']}")
+    return res
+
+
+class StageClock(Tee):
+    """A Tee that notes the time each `pipeline` stage starts (its
+    "=== openmvg_torch <stage>" line)."""
+
+    def __init__(self, out):
+        super().__init__(out)
+        self.marks = []
+
+    def write(self, text):
+        if text.startswith("=== openmvg_torch "):
+            import torch
+
+            torch.cuda.synchronize()
+            self.marks.append((text.split()[2], time.perf_counter()))
+        return super().write(text)
+
+
+def phase_camera3(kernel_mods, n_views, size, work):
+    """The one-command main path with every default but the focal:
+    `pipeline -i images -o run -f <focal>` (camera model 3, NORMAL,
+    EXHAUSTIVE pairs, filter f, INCREMENTAL), then eval; every kernel's
+    count set to 0 just before the pipeline and read just after."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.utils.logging import stage_times
+    from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
+
+    focal = 1.2 * size
+    imgdir, gtdir, _, _, _ = render_textured_sphere_dataset(
+        work, n_views=n_views, size=size, focal=focal, seed=1,
+        arc_step=min(2 * math.pi / n_views, 0.063), device="cuda")
+    out = os.path.join(work, "run")
+    recon = os.path.join(out, "reconstruction_sequential")
+    clock = StageClock(sys.stdout)
+    for m in kernel_mods:        # every kernel's count, just before the path
+        m.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        rc = cli.main(["pipeline", "-i", imgdir, "-o", out, "-f", str(focal)])
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in kernel_mods}  # just after
+    if rc != 0:
+        fail(f"[camera3] pipeline returned {rc}")
+    marks = clock.marks + [("end", t_end)]
+    secs = {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    engine = dict(stage_times)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    scene_path = os.path.join(recon, "sfm_data.json")
+    secs_eval, printed, _ = run_stages([], [("eval", ["eval", "-i", scene_path, "-g", gtdir])])
+    secs["eval"] = secs_eval["eval"]
+    stats = json.loads(printed["eval"].getvalue())
+    log(f"[camera3] stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; pipeline {t_end - t0:.2f}; peak device memory {peak_gb:.2f} GiB")
+    log("[camera3] engine stage seconds: " + ", ".join(f"{k} {v:.3f}"
+                                                     for k, v in engine.items()))
+    n_pairs = n_views * (n_views - 1) // 2
+    scene, polish_steps, rounds, _ = check_reconstruction(
+        "[camera3]", scene_path, os.path.join(recon, "colorized.ply"), stats, n_views,
+        ("two_nn", "seg_sum"), launches, clock.getvalue(), polish_gate=False,
+        min_poses=n_views - 1)
+    kinds = sorted(set(int(k) for k in scene.cameras.kind))
+    k123 = np.asarray(scene.cameras.params)[:, 3:6]
+    if kinds != [3]:
+        fail(f"[camera3] intrinsic kinds {kinds}, not PINHOLE_RADIAL_K3 (3)")
+    log(f"[camera3] {n_pairs} exhaustive pairs; intrinsic PINHOLE_RADIAL_K3, k1..k3 "
+        f"{k123.tolist()} (rendered without distortion); {polish_steps} polish steps "
+        "(not gated: the polish takes one shared PINHOLE only)")
+    return dict(secs=secs, launches=launches, engine=engine, stats=stats,
+                polish_steps=polish_steps, rounds=rounds, k123=k123.tolist(),
+                pipeline_s=t_end - t0, peak_device_gib=peak_gb, n_pairs=n_pairs)
 
 
 def final_problem(scene):
@@ -1192,15 +1364,30 @@ def main():
     with tempfile.TemporaryDirectory(prefix="omt_torch_smoke_") as work:
         run = phase_pipeline(mods, args.views, args.size, work)
         os.environ.pop("OMT_FUSED_SMATVEC", None)   # INCREMENTAL runs unfused
-        srun = phase_sfm(mods, run, args.views, profile=False)
+        srun = phase_sfm(mods, run, args.views)
         if srun["launches"]["smatvec"] != 0:
             fail("K3 launched in the INCREMENTAL phase, where it is off")
         log(f"[sfm] K2 launches in the INCREMENTAL sfm stage: {srun['launches']['seg_sum']} "
             "(one a call)")
+        v2run = phase_sfm2(mods, run, args.views)
         grun = phase_global(mods, run, args.views)
+        strun = phase_stellar(mods, run, args.views)
+        c3_views = min(args.views, 24)
+        log(f"[camera3] CUT: {c3_views} views of {args.size}^2, "
+            f"{c3_views * (c3_views - 1) // 2} exhaustive pairs (the realistic scale is "
+            "100 views of 1024^2)")
+        c3run = phase_camera3(mods, c3_views, args.size, os.path.join(work, "camera3"))
     meas = phase_measure(two_nn, run, dev, mhz)
     m2 = phase_measure_k2(seg_sum, final_problem(srun["scene"]))
     m3 = phase_measure_k3(smatvec, seg_sum, final_problem(grun["scene"]))
+
+    def new_paths(name):
+        return {"launches_v2": v2run["launches"][name],
+                "launches_stellar": strun["launches"][name],
+                "launches_camera3": c3run["launches"][name]}
+
+    def evals(r):
+        return {k: v for k, v in r["stats"].items() if not isinstance(v, dict)}
 
     k2 = m2["jtu"]
     line = {"kernels": [{
@@ -1213,6 +1400,7 @@ def main():
         "max_sm_clock_mhz": mhz, "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
                              "library_ms": kres["headline_lib_ms"],
                              "bound_ms": kres["headline_bound_ms"]},
+        **new_paths("two_nn"),
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
@@ -1222,7 +1410,7 @@ def main():
         "unfused_ms": k2["unfused_ms"], "fused_vs_unfused_max_abs": k2["fused_vs_unfused"],
         "shape": {"O": k2["O"], "P": k2["P"], "I": k2["I"]}, "camera_jtj": m2["jtj"],
         "generic_jtr_k6": m2["jtr_k6"], "generic_jtj_k36": m2["jtj_k36"],
-        "launches_global": grun["launches"]["seg_sum"],
+        "launches_global": grun["launches"]["seg_sum"], **new_paths("seg_sum"),
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
@@ -1235,14 +1423,20 @@ def main():
         "fused_vs_unfused_rel": m3["fused_vs_unfused_rel"],
         "shape": {k: m3[k] for k in ("O", "R", "L", "M", "P", "I")},
         "cg_iterations_one_solve": {"unfused": m3["cg_unfused"], "fused": m3["cg_fused"]},
+        **new_paths("smatvec"),
     }], "pipeline_s": run["secs"], "sfm_s": srun["secs"], "engine_s": srun["engine"],
-        "polish_steps": srun["polish_steps"],
-        "eval": {k: v for k, v in srun["stats"].items() if not isinstance(v, dict)},
+        "polish_steps": srun["polish_steps"], "eval": evals(srun),
+        "sfm2_s": v2run["secs"], "sfm2_engine_s": v2run["engine"],
+        "sfm2_polish_steps": v2run["polish_steps"], "sfm2_eval": evals(v2run),
         "global_s": grun["secs"], "global_engine_s": grun["engine"],
         "global_polish_steps": grun["polish_steps"],
-        "global_rerun_identical": grun["rerun_identical"],
-        "global_pairs_kept": grun["pairs_kept"],
-        "global_eval": {k: v for k, v in grun["stats"].items() if not isinstance(v, dict)}}
+        "global_pairs_kept": grun["pairs_kept"], "global_eval": evals(grun),
+        "stellar_s": strun["secs"], "stellar_engine_s": strun["engine"],
+        "stellar_pods": strun["pods"], "stellar_eval": evals(strun),
+        "camera3_views": c3_views, "camera3_s": c3run["secs"],
+        "camera3_pipeline_s": c3run["pipeline_s"], "camera3_engine_s": c3run["engine"],
+        "camera3_polish_steps": c3run["polish_steps"], "camera3_k123": c3run["k123"],
+        "camera3_peak_device_gib": c3run["peak_device_gib"], "camera3_eval": evals(c3run)}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

@@ -7,17 +7,22 @@ one-command pipeline and eval).
   pairs     main_PairGenerator.cpp         (EXHAUSTIVE | CONTIGUOUS)
   matches   main_ComputeMatches.cpp        (brute-force L2, ratio 0.8)
   filter    main_GeometricFilter.cpp       (AC-RANSAC f | e, 4 px, 2048 it)
-  sfm       main_SfM.cpp                   (INCREMENTAL engine version 1 | GLOBAL)
+  sfm       main_SfM.cpp                   (INCREMENTAL | INCREMENTALV2 | GLOBAL |
+                                            STELLAR; sfm_data .json or .bin, the
+                                            HTML report)
   color     main_ComputeSfM_DataColor.cpp  (colorized.ply)
-  eval      main_evalQuality.cpp           (Strecha ground truth)
+  eval      main_evalQuality.cpp           (Strecha ground truth; --html)
+  report    sfm_report.cpp                 (SfMReconstruction_Report.html)
+  convert   main_ConvertSfM_DataFormat.cpp (.json | .bin | .xml, part flags)
+  points-filter main_PointsFiltering.cpp   (depth cleaning)
   pipeline  SfM_SequentialPipeline.py /    (init .. color in one command; GLOBAL
             SfM_GlobalPipeline.py           filters with e)
 
 Flags, defaults and printed summaries are the reference's, plus --device:
 every stage runs on `cuda` unless `--device cpu` is given, and raises when
 CUDA is asked for and absent.  Stages exchange the reference's files
-(sfm_data.json, .feat/.desc, matches.*.bin), so the two packages' stages
-can be mixed.
+(sfm_data.json / .bin / .xml, .feat/.desc, matches.*.bin), so the two
+packages' stages can be mixed.
 
     python -m openmvg_torch.cli init -i images -o out -f 1228.8 -c 1
 """
@@ -309,48 +314,57 @@ def cmd_sfm(args):
     from openmvg_torch.io.ply import save_scene_ply
     from openmvg_torch.io.sfm_data import save_sfm_data
     from openmvg_torch.sfm import ba
-    from openmvg_torch.sfm.pipeline_global import GlobalConfig, global_sfm
-    from openmvg_torch.sfm.pipeline_incremental import IncrementalConfig, incremental_sfm
     from openmvg_torch.sfm.scene import rmse
     from openmvg_torch.utils.logging import (format_stage_times, reset_stage_times,
                                              stage_times)
+    from openmvg_torch.utils.report import generate_sfm_report
 
     engine = args.sfm_engine.upper()
-    if engine not in ("INCREMENTAL", "GLOBAL"):
-        raise NotImplementedError(
-            f"engine {engine} is not ported yet: INCREMENTALV2 and STELLAR are ROADMAP "
-            "queue 1 item 10; use -s INCREMENTAL or -s GLOBAL")
-    if args.output_format != "json":
-        raise NotImplementedError("sfm_data .bin/.xml are not ported yet (ROADMAP queue 1, "
-                                  "item 1); use --output_format json")
+    if engine not in ("INCREMENTAL", "INCREMENTALV2", "GLOBAL", "STELLAR"):
+        print(f"engine {engine} not available", file=sys.stderr)
+        return 1
     scene = _load_scene(args.input_file)
     feats, _ = _load_features_for_scene(scene, args.match_dir)
     matches = load_matches(args.match_file or os.path.join(args.match_dir, "matches.f.bin"))
     os.makedirs(args.output_dir, exist_ok=True)
     t0 = time.time()
     refine = ba.ADJUST_ALL if args.refine_intrinsic_config == "ADJUST_ALL" else ba.ADJUST_NONE
-    initial_pair = None
-    if args.initial_pair_a and args.initial_pair_b:
-        names = [os.path.basename(n) for n in scene.view_filename]
-        initial_pair = (names.index(os.path.basename(args.initial_pair_a)),
-                        names.index(os.path.basename(args.initial_pair_b)))
     reset_stage_times()
+    # stats: the accepted f64 polish steps and `rounds`; for GLOBAL and
+    # STELLAR the final BA's runs (one plus one per rejector pass)
     stats = {}
     if engine == "GLOBAL":
-        # stats["rounds"] counts the final BA and its bad-track re-runs
+        from openmvg_torch.sfm.pipeline_global import GlobalConfig, global_sfm
+
         cfg = GlobalConfig(verbose=True, refine_intrinsics=refine,
                            rotation_averaging=args.rotationAveraging,
                            translation_averaging=args.translationAveraging)
         global_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
+    elif engine == "STELLAR":
+        from openmvg_torch.sfm.pipeline_stellar import StellarConfig, stellar_sfm
+
+        cfg = StellarConfig(verbose=True, refine_intrinsics=refine)
+        stellar_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
     else:
+        from openmvg_torch.sfm.pipeline_incremental import IncrementalConfig, incremental_sfm
+
+        initial_pair = None
+        if args.initial_pair_a and args.initial_pair_b:
+            names = [os.path.basename(n) for n in scene.view_filename]
+            initial_pair = (names.index(os.path.basename(args.initial_pair_a)),
+                            names.index(os.path.basename(args.initial_pair_b)))
         cfg = IncrementalConfig(verbose=True, refine_intrinsics=refine,
-                                initializer=args.sfm_initializer, initial_pair=initial_pair)
+                                initializer=args.sfm_initializer, initial_pair=initial_pair,
+                                engine_version=2 if engine == "INCREMENTALV2" else 1)
         incremental_sfm(scene, feats, matches, cfg, device=args.device, stats=stats)
-    save_sfm_data(scene, os.path.join(args.output_dir, "sfm_data.json"))
+    out_name = "sfm_data.bin" if args.output_format == "bin" else "sfm_data.json"
+    save_sfm_data(scene, os.path.join(args.output_dir, out_name))
     save_scene_ply(scene, os.path.join(args.output_dir, "cloud_and_poses.ply"))
+    generate_sfm_report(scene, os.path.join(args.output_dir, "SfMReconstruction_Report.html"))
     print(f"SfM done in {time.time() - t0:.1f}s: {int(scene.pose_valid.sum())} poses, "
           f"{scene.n_landmarks} points, rmse={rmse(scene):.3f}px, "
-          f"{stats['polish_steps']} f64 polish steps, {stats['rounds']} rounds")
+          f"{stats['polish_steps']} f64 polish steps, {stats['rounds']} rounds"
+          + (f", {stats['pods']} pods" if "pods" in stats else ""))
     print("stage seconds:\n" + format_stage_times(stage_times))
     return 0
 
@@ -371,18 +385,58 @@ def cmd_eval(args):
     from openmvg_torch.io.gt_loaders import load_strecha_gt
     from openmvg_torch.sfm.eval_quality import evaluate_against_gt
 
-    if args.html:
-        raise NotImplementedError("the HTML report is not ported yet (ROADMAP queue 1, "
-                                  "item 1, utils/report)")
     stats = evaluate_against_gt(_load_scene(args.input_file), load_strecha_gt(args.gt_dir))
+    if args.html:
+        from openmvg_torch.sfm.eval_quality import export_eval_html
+
+        export_eval_html(stats, args.html)
     print(json.dumps({k: v for k, v in stats.items() if not isinstance(v, dict)}, indent=2))
+    return 0
+
+
+def cmd_report(args):
+    from openmvg_torch.utils.report import generate_sfm_report
+
+    generate_sfm_report(_load_scene(args.input_file), args.output_file)
+    print(f"report written to {args.output_file}")
+    return 0
+
+
+def cmd_convert(args):
+    """main_ConvertSfM_DataFormat.cpp: save again in the format of the
+    output's extension, with the parts selected (all when none is)."""
+    from openmvg_torch.io import sfm_data as sio
+
+    parts = 0
+    for flag, bit in (("views", sio.VIEWS), ("intrinsics", sio.INTRINSICS),
+                      ("extrinsics", sio.EXTRINSICS), ("structure", sio.STRUCTURE),
+                      ("control_points", sio.CONTROL_POINTS)):
+        if getattr(args, flag):
+            parts |= bit
+    sio.save_sfm_data(sio.load_sfm_data(args.input_file), args.output_file, parts or sio.ALL)
+    print(f"converted to {args.output_file}")
+    return 0
+
+
+def cmd_points_filter(args):
+    """main_PointsFiltering.cpp: depth cleaning at `factor` times each
+    view's median depth, then the structure renumbered."""
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm.filters import depth_cleaning
+
+    scene = _load_scene(args.input_file)
+    min_median = depth_cleaning(scene, k_factor=args.factor)
+    scene.compact_structure()
+    save_sfm_data(scene, args.output_file)
+    print(f"min median depth = {min_median}; {scene.n_landmarks} landmarks kept")
     return 0
 
 
 def cmd_pipeline(args):
     """init -> features -> pairs -> matches -> filter -> sfm -> color in one
     command (SfM_SequentialPipeline.py, SfM_GlobalPipeline.py), each stage on
-    args.device; the GLOBAL engine filters with the essential model."""
+    args.device; GLOBAL filters with the essential model, every other engine
+    with the fundamental one."""
     out = args.output_dir
     matches_dir = os.path.join(out, "matches")
     is_global = args.sfm_engine.upper() == "GLOBAL"
@@ -496,6 +550,24 @@ def build_parser():
     p.add_argument("-i", "--input_file", required=True)
     p.add_argument("-g", "--gt_dir", required=True)
     p.add_argument("--html", default="")
+
+    p = stage("report", cmd_report)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+
+    p = stage("convert", cmd_convert)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-V", "--views", action="store_true")
+    p.add_argument("-I", "--intrinsics", action="store_true")
+    p.add_argument("-E", "--extrinsics", action="store_true")
+    p.add_argument("-S", "--structure", action="store_true")
+    p.add_argument("-C", "--control_points", action="store_true")
+
+    p = stage("points-filter", cmd_points_filter)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-f", "--factor", type=float, default=5.2)
 
     p = stage("pipeline", cmd_pipeline)
     p.add_argument("-i", "--imageDirectory", required=True)

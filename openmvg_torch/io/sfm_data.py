@@ -6,8 +6,9 @@ sfm_view_io.hpp, cameras/*_io.hpp field names, geometry/pose3_io.hpp,
 sfm_landmark_io.hpp.  The cereal polymorphic-pointer encoding is
 reproduced: the first use of a type writes 0x80000000|index and its name,
 later uses the plain index; plain View pointers use 1073741824; ptr_wrapper
-ids count up from 2147483649.  The .bin and .xml formats come with a later
-slice of the port.
+ids count up from 2147483649.  load_sfm_data / save_sfm_data dispatch on
+the extension: .json here, .bin to io/sfm_data_bin.py (cereal
+PortableBinary), .xml to io/sfm_data_xml.py (cereal XML).
 """
 
 import json
@@ -60,6 +61,12 @@ def _poly_value(ids, name, data):
     return value
 
 
+def has_prior(scene: Scene, v) -> bool:
+    """Whether view v carries a GPS pose-centre prior (a ViewPriors node)."""
+    return (scene.prior_center is not None and scene.prior_center_weight is not None
+            and bool(np.any(scene.prior_center_weight[v] > 0)))
+
+
 def _doc_from_scene(scene: Scene, parts: int = ALL):
     ids = _PtrIds()
     doc = {"sfm_data_version": "0.3", "root_path": scene.root_path,
@@ -78,10 +85,7 @@ def _doc_from_scene(scene: Scene, parts: int = ALL):
                 "id_intrinsic": int(scene.view_intrinsic[v]),
                 "id_pose": int(scene.view_pose[v]),
             }
-            has_prior = (scene.prior_center is not None
-                         and scene.prior_center_weight is not None
-                         and np.any(scene.prior_center_weight[v] > 0))
-            if has_prior:
+            if has_prior(scene, v):
                 data["use_pose_center_prior"] = True
                 data["center_weight"] = [
                     float(x) for x in scene.prior_center_weight[v]]
@@ -263,25 +267,39 @@ def _scene_from_doc(doc, parts: int = ALL) -> Scene:
     return scene
 
 
-def _check_ext(path):
+def _ext(path):
     ext = os.path.splitext(path)[1].lower()
-    if ext in (".bin", ".xml"):
-        raise NotImplementedError(
-            f"sfm_data{ext} is not ported yet: the binary and XML formats "
-            "come with a later slice of the port (ROADMAP queue 1, item 1); "
-            "use sfm_data.json")
-    if ext != ".json":
+    if ext not in (".json", ".bin", ".xml"):
         raise ValueError(f"unsupported sfm_data extension: {ext}")
+    return ext
 
 
 def load_sfm_data(path: str, parts: int = ALL) -> Scene:
-    _check_ext(path)
+    """Read a scene from .json, .bin or .xml (sfm_data_io.cpp Load)."""
+    ext = _ext(path)
+    if ext == ".bin":
+        from openmvg_torch.io.sfm_data_bin import load_sfm_data_bin
+
+        return load_sfm_data_bin(path, parts)
+    if ext == ".xml":
+        from openmvg_torch.io.sfm_data_xml import load_sfm_data_xml
+
+        return load_sfm_data_xml(path, parts)
     with open(path) as f:
         return _scene_from_doc(json.load(f), parts)
 
 
 def save_sfm_data(scene: Scene, path: str, parts: int = ALL):
-    _check_ext(path)
+    """Write a scene as .json, .bin or .xml, chosen by the extension."""
+    ext = _ext(path)
+    if ext == ".bin":
+        from openmvg_torch.io.sfm_data_bin import save_sfm_data_bin
+
+        return save_sfm_data_bin(scene, path, parts)
+    if ext == ".xml":
+        from openmvg_torch.io.sfm_data_xml import save_sfm_data_xml
+
+        return save_sfm_data_xml(scene, path, parts)
     with open(path, "w") as f:
         json.dump(_doc_from_scene(scene, parts), f, indent=2)
     return True

@@ -2,7 +2,8 @@
 openmvg_tpu/sfm/eval_quality.py; openMVG main_evalQuality.cpp,
 tools_precisionEvaluationToGt.hpp): a 7-DoF similarity (find_rts) aligns
 the estimated camera centres onto the ground truth, then per-camera
-position error (ground-truth units) and rotation error statistics."""
+position error (ground-truth units) and rotation error statistics, and
+export_eval_html, their HTML table."""
 
 import os
 from typing import Dict
@@ -60,3 +61,28 @@ def evaluate_against_gt(scene_est, scene_gt, match_by="filename") -> Dict:
                         position_error=[float(e) for e in pos_err],
                         rotation_error_deg=[float(a) for a in ang]),
     )
+
+
+def export_eval_html(stats: Dict, path: str, title="GT evaluation"):
+    """The per-camera error table and histograms as HTML
+    (tools_precisionEvaluationToGt.hpp exportToHtml); the reference's text
+    for the same stats."""
+    from openmvg_torch.utils.report import _svg_histogram
+
+    pc = stats.get("per_camera", {})
+    pos = pc.get("position_error", [])
+    rot = pc.get("rotation_error_deg", [])
+    rows = "".join(f"<tr><td>{i}</td><td>{p:.6f}</td><td>{r:.4f}</td></tr>"
+                   for i, (p, r) in enumerate(zip(pos, rot)))
+    summary = "".join(f"<li>{k}: {v}</li>" for k, v in stats.items() if not isinstance(v, dict))
+    html = f"""<!DOCTYPE html><html><head><title>{title}</title></head><body>
+<h1>{title}</h1>
+<ul>{summary}</ul>
+{_svg_histogram(pos, title="camera position error") if pos else ""}
+{_svg_histogram(rot, title="camera rotation error (deg)") if rot else ""}
+<table border="1"><tr><th>#</th><th>position err</th><th>rotation err (deg)</th></tr>
+{rows}</table>
+</body></html>"""
+    with open(path, "w") as f:
+        f.write(html)
+    return True

@@ -8,6 +8,9 @@ openmvg_tpu/sfm/filters.py; openMVG sfm/sfm_data_filters.cpp).
   erase_unstable_poses_and_observations   iterate pose / landmark support
                                    erasure to a fixed point
   bad_track_rejector               the incremental engine's cleanup
+  depth_cleaning                   observations beyond k times their
+                                   view's median depth (STELLAR's pods,
+                                   `points-filter`)
 
 Vectorised numpy over the flat observation table; they mutate the
 Scene's masks in place between bundle adjustments.
@@ -133,3 +136,30 @@ def bad_track_rejector(scene: Scene, precision_px=4.0, count_threshold=50,
     n1 = remove_outliers_pixel_residual(scene, precision_px, 2)
     n2 = remove_outliers_angle_error(scene, min_angle_deg)
     return (n1 + n2) > count_threshold
+
+
+def depth_cleaning(scene: Scene, k_factor=5.2, min_points_per_pose=12, min_track_length=2):
+    """DepthCleaning (sfm_data_filters.cpp:391-469): drop the observations
+    whose camera depth is not positive or not under k_factor times their
+    view's median positive depth, then erase unstable poses and landmarks.
+    Returns the smallest median depth over the views."""
+    idx, pid = _posed_obs(scene)
+    if len(idx) == 0:
+        return float("inf")
+    R = scene.pose_R[pid[idx]]
+    depth = np.einsum("nj,nj->n", R[:, 2, :],
+                      scene.X[scene.obs_landmark[idx]] - scene.pose_C[pid[idx]])
+    views = scene.obs_view[idx]
+    thr = {}
+    min_median = float("inf")
+    for v in np.unique(views):
+        dv = depth[(views == v) & (depth > 0)]
+        if len(dv):
+            m = float(np.median(dv))
+            thr[int(v)] = k_factor * m
+            min_median = min(min_median, m)
+    t = np.array([thr.get(int(v), -1.0) for v in views])
+    keep = (depth > 0) & (t > 0) & (depth < t)
+    scene.obs_valid[idx[~keep]] = False
+    erase_unstable_poses_and_observations(scene, min_points_per_pose, min_track_length)
+    return min_median

@@ -1,12 +1,17 @@
-"""Incremental (sequential) SfM engine, version 1 (counterpart:
+"""Incremental (sequential) SfM engine, versions 1 and 2 (counterpart:
 openmvg_tpu/sfm/pipeline_incremental.py; openMVG sequential_SfM.cpp
-SequentialSfMReconstructionEngine).
+SequentialSfMReconstructionEngine and sequential_SfM2.cpp).
 
   tracks -> automatic initial pair (robust relative pose, median
   triangulation angle in [3, 60] deg) -> initial structure and BA ->
-  loop { views with >= 75% of the best 2D-3D count -> resection (AC-RANSAC
-  P3P, pose refine) -> new-track triangulation -> BA until the bad-track
-  rejector is quiet -> erase unstable poses } -> final BA -> f64 polish.
+  loop { a group of unposed views -> resection (AC-RANSAC P3P, pose
+  refine) -> new-track triangulation -> BA until the bad-track rejector is
+  quiet -> erase unstable poses } -> final BA -> f64 polish.
+
+Version 1 (INCREMENTAL) takes the views with >= 75% of the best 2D-3D
+count each round; version 2 (INCREMENTALV2) every view whose
+reconstructed-track coverage passes a ratio schedule {0.2, 0.0}, and its
+round cleanup also drops landmarks under 2 degrees of parallax.
 
 The outer loop runs on the host.  Each inner step is a batched device
 call: AC-RANSAC over a batch of pairs or views, N-view triangulation of
@@ -21,11 +26,14 @@ utils.logging.stage_times under the reference's names.
 """
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from openmvg_torch.io.ply import save_scene_ply
+from openmvg_torch.io.snapshot import save_snapshot
 from openmvg_torch.models import cameras as cm
 from openmvg_torch.sfm import ba, filters, robust
 from openmvg_torch.sfm.geometric_filter import pair_generator
@@ -62,7 +70,14 @@ class IncrementalConfig:
     verbose: bool = False
     max_candidate_pairs: int = 20
     dtype: object = torch.float32     # bundle adjustment on the device
+    # after each round, round_NNN.ply and latest_snapshot.npz go here
+    # (sequential_SfM.cpp:200-203 dumps; the snapshot is a checkpoint)
+    dump_dir: str = ""
+    # 2 = INCREMENTALV2 (sequential_SfM2.cpp:84-203): each round resects
+    # every unposed view whose reconstructed-track coverage exceeds the
+    # schedule's ratio, and the round cleanup adds the 2 deg angle filter
     engine_version: int = 1
+    v2_track_inlier_ratios: Tuple[float, ...] = (0.2, 0.0)
     f64_polish: bool = True
     # mid-round BA stops early; the final BA and the polish run in full
     ba_round_ftol: float = 1e-4
@@ -329,9 +344,6 @@ def incremental_sfm(scene: Scene, features: List[np.ndarray],
     (M, 2) feature index pairs.  device: None = cuda (raises without a
     card); pass "cpu" to run on the CPU.  stats, a dict if given, receives
     the round count and the accepted f64 polish steps."""
-    if cfg.engine_version != 1:
-        raise NotImplementedError(
-            "INCREMENTALV2 (engine_version 2) is not ported yet: ROADMAP queue 1, item 10")
     device = resolve_device(device)
     stats = {} if stats is None else stats
     tracks = build_tracks(matches, min_length=2)
@@ -397,15 +409,9 @@ def incremental_sfm(scene: Scene, features: List[np.ndarray],
         _log(cfg, f"init: {scene.n_landmarks} landmarks rmse={rmse(scene):.3f}")
         posed = {int(va), int(vb)}
     failed_rounds: Dict[int, int] = {}
-
     round_id = 0
-    while True:
-        round_id += 1
-        with stage("find_group"):
-            group = _find_resection_group(scene, index, posed, landmark_of_track, cfg,
-                                          failed_rounds)
-        if not group:
-            break
+
+    def resect_group(group):
         with stage("resection"):
             ok_views = _resect_views_batch(scene, index, group, landmark_of_track, cfg, seed,
                                            round_id, device)
@@ -414,8 +420,9 @@ def incremental_sfm(scene: Scene, features: List[np.ndarray],
                     posed.add(int(v))
                 else:
                     failed_rounds[int(v)] = failed_rounds.get(int(v), 0) + 1
-        if not ok_views:
-            break
+        return len(ok_views)
+
+    def round_cleanup(added):
         with stage("triangulation"):
             _grow_structure(scene, index, posed, landmark_of_track, cfg, device)
         _run_ba(scene, cfg, device, function_tolerance=cfg.ba_round_ftol,
@@ -424,17 +431,58 @@ def incremental_sfm(scene: Scene, features: List[np.ndarray],
             _run_ba(scene, cfg, device, function_tolerance=cfg.ba_round_ftol,
                     max_iterations=cfg.ba_round_iterations)
         with stage("filters"):
+            if cfg.engine_version == 2:
+                filters.remove_outliers_angle_error(scene, 2.0)   # sequential_SfM2.cpp:166
             filters.erase_unstable_poses_and_observations(scene, cfg.min_points_per_pose)
         gone = np.nonzero(~scene.X_valid)[0]
         if len(gone):
             mask = np.isin(landmark_of_track, gone)
             landmark_of_track[mask] = -1
             index.last_tri_nobs[mask] = 0  # erased tracks may be retried
-        _log(cfg, f"round {round_id}: +{len(ok_views)} views ({len(posed)} total), "
+        _log(cfg, f"round {round_id}: +{added} views ({len(posed)} total), "
                   f"{scene.n_landmarks} landmarks")
-        if deadline.past():
-            _log(cfg, "deadline reached: stopping with a partial scene")
-            break
+        if cfg.dump_dir:
+            os.makedirs(cfg.dump_dir, exist_ok=True)
+            save_scene_ply(scene, os.path.join(cfg.dump_dir, f"round_{round_id:03d}.ply"))
+            save_snapshot(scene, os.path.join(cfg.dump_dir, "latest_snapshot.npz"))
+
+    if cfg.engine_version == 2:
+        # the track-inlier-ratio schedule (sequential_SfM2.cpp:155-183): a
+        # round that adds nothing moves to the next, looser ratio; any
+        # growth goes back to the strictest
+        ratios = list(cfg.v2_track_inlier_ratios)
+        r_idx = 0
+        while r_idx < len(ratios):
+            with stage("find_group"):
+                group = _find_v2_group(scene, index, posed, landmark_of_track, ratios[r_idx],
+                                       failed_rounds)
+            if not group:
+                r_idx += 1
+                continue
+            round_id += 1
+            n_posed_before = len(posed)
+            added = resect_group(group)
+            if added:
+                round_cleanup(added)
+            r_idx = 0 if len(posed) > n_posed_before else r_idx + 1
+            if deadline.past():
+                _log(cfg, "deadline reached: stopping with a partial scene")
+                break
+    else:
+        while True:
+            round_id += 1
+            with stage("find_group"):
+                group = _find_resection_group(scene, index, posed, landmark_of_track, cfg,
+                                              failed_rounds)
+            if not group:
+                break
+            added = resect_group(group)
+            if not added:
+                break
+            round_cleanup(added)
+            if deadline.past():
+                _log(cfg, "deadline reached: stopping with a partial scene")
+                break
 
     _run_ba(scene, cfg, device)
     while not deadline.past() and _timed_rejector(scene, cfg, 0):
@@ -499,6 +547,23 @@ def _find_resection_group(scene, index, posed, landmark_of_track, cfg, failed_ro
     best = max(counts.values())
     group = [v for v, n in counts.items() if n >= cfg.resection_pct * best]
     return sorted(group, key=lambda v: -counts[v])
+
+
+def _find_v2_group(scene, index, posed, landmark_of_track, ratio, failed_rounds):
+    """AddingMissingView's candidates (sequential_SfM2.cpp:292-380): unposed
+    views whose reconstructed-track coverage n_reconstructed / (n_tracks +
+    1) exceeds `ratio`, most 2D-3D correspondences first; a view that
+    failed three rounds is left out."""
+    tr = index.tracks
+    total = np.bincount(tr.view_id, minlength=scene.n_views)
+    rec = np.bincount(tr.view_id[landmark_of_track[tr.track_id] >= 0],
+                      minlength=scene.n_views)
+    eligible = (rec > 0) & (rec / (total + 1.0) > ratio)
+    eligible[list(posed)] = False
+    for v, f in failed_rounds.items():
+        if f >= 3:
+            eligible[v] = False
+    return sorted((int(v) for v in np.nonzero(eligible)[0]), key=lambda v: -rec[v])
 
 
 def _resect_views_batch(scene, index, views, landmark_of_track, cfg, seed, round_id, device):

@@ -90,6 +90,22 @@ class Scene:
                     intr_id=self.view_intrinsic[self.obs_view[sel]],
                     landmark_id=self.obs_landmark[sel], x=self.obs_x[sel])
 
+    def compact_structure(self):
+        """Drop invalid landmarks and observations and renumber the
+        landmarks densely."""
+        keep_l = np.nonzero(self.X_valid)[0]
+        remap = np.full(len(self.X_valid), -1, np.int32)
+        remap[keep_l] = np.arange(len(keep_l), dtype=np.int32)
+        keep_o = self.obs_valid & (remap[self.obs_landmark] >= 0)
+        self.X = self.X[keep_l]
+        self.X_valid = np.ones(len(keep_l), bool)
+        self.obs_landmark = remap[self.obs_landmark[keep_o]]
+        self.obs_view = self.obs_view[keep_o]
+        self.obs_x = self.obs_x[keep_o]
+        self.obs_feat = self.obs_feat[keep_o]
+        self.obs_valid = np.ones(int(keep_o.sum()), bool)
+        return self
+
 
 def group_shared_intrinsics(scene: Scene):
     """Merge identical intrinsics and remap the views

@@ -300,9 +300,27 @@ def test_incremental_same_seed_same_scene():
 
 
 def test_incremental_rejects_unported_engine_version():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        incremental_sfm(from_reference(ring_data(ring_scene(4, 20))[0]), [], {},
-                        IncrementalConfig(engine_version=2), device="cpu")
+    """engine_version 2 (INCREMENTALV2) is ported: its candidate rule,
+    _find_v2_group, picks the reference's views in the reference's order
+    for each ratio of the schedule, with posed views and views that failed
+    three rounds left out."""
+    from openmvg_tpu.sfm.pipeline_incremental import _TrackIndex as JIndex
+    from openmvg_tpu.sfm.pipeline_incremental import _find_v2_group as jfind
+    from openmvg_torch.sfm.pipeline_incremental import _TrackIndex, _find_v2_group
+
+    s = ring_scene(n_views=12, n_points=150, seed=4)
+    jsc, feats, matches = ring_data(s)
+    tracks = build_tracks(matches)
+    rng = np.random.default_rng(5)
+    lot = np.where(rng.random(tracks.n_tracks) < 0.35, np.arange(tracks.n_tracks), -1)
+    posed, failed = {0, 1, 2}, {7: 3, 8: 1}
+    tindex = _TrackIndex(tracks, feats)
+    jindex = JIndex(jbuild_tracks(matches), feats)
+    for ratio in (0.2, 0.1, 0.0):
+        got = _find_v2_group(from_reference(jsc), tindex, posed, lot, ratio, failed)
+        assert got == jfind(jsc, jindex, posed, lot, ratio, failed)
+        assert not set(got) & (posed | {7})
+    assert IncrementalConfig().v2_track_inlier_ratios == JConfig().v2_track_inlier_ratios
 
 
 def test_cli_sfm_color_eval_on_rendered_views(tmp_path, capsys):

@@ -1,6 +1,6 @@
 """Port parity for the on-disk formats: .feat, .desc, matches.bin and
-sfm_data.json written by one package are read by the other and are byte
-for byte the same; the port's own PNG reader equals PIL."""
+sfm_data .json/.bin/.xml written by one package are read by the other and
+are byte for byte the same; the port's own PNG reader equals PIL."""
 
 import os
 
@@ -104,10 +104,23 @@ def test_sfm_data_json_cross_read_and_bytes(tmp_path):
 
 
 def test_sfm_data_other_formats_raise(tmp_path):
-    port = from_reference(_reference_scene())
+    """.bin and .xml are the reference's bytes and cross back; any other
+    extension raises (tests/test_torch_formats.py holds the rest)."""
+    ref = _reference_scene()
+    port = from_reference(ref)
     for ext in (".bin", ".xml"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        pj, pt = str(tmp_path / ("j" + ext)), str(tmp_path / ("t" + ext))
+        jsfm.save_sfm_data(ref, pj)
+        tsfm.save_sfm_data(port, pt)
+        assert _bytes(pj) == _bytes(pt)
+        back = tsfm.load_sfm_data(pj)
+        np.testing.assert_array_equal(back.cameras.params, ref.cameras.params)
+        np.testing.assert_array_equal(back.prior_center_weight, ref.prior_center_weight)
+    for ext in (".ply", ".txt"):
+        with pytest.raises(ValueError, match="extension"):
             tsfm.save_sfm_data(port, str(tmp_path / ("s" + ext)))
+        with pytest.raises(ValueError, match="extension"):
+            tsfm.load_sfm_data(str(tmp_path / ("s" + ext)))
 
 
 @pytest.mark.parametrize("mode", ["gray", "rgb", "gray_float"])
