@@ -72,6 +72,29 @@ last line is printed):
             filter f matches, color and eval; the sfm gates but the polish
             (STELLAR runs none, and must print 0 steps), K2 and K3 launched;
             prints the pod count and the engine's stage seconds
+  matchers  the rest of the matching and filtering layer on the pipeline's
+            run directory, each step with every kernel's count set to 0
+            just before and read just after: matches -n CASCADEHASHINGL2
+            then filter -g f (recall >= 0.90 against BRUTEFORCEL2, >= 90%
+            of pairs kept, >= 95% of matches within 4 px of the
+            ground-truth epipolar line); filter -g a (the same two gates);
+            filter -g f -r, guided matching on K1 (the same gates, and at
+            least the plain -g f's matches); the models h, u and o on 256
+            synthetic pairs of 400 true correspondences and 100 outliers
+            each (every pair kept with more than 85% of the true ones, 80%
+            for o, and at most 10% + 2 of the outliers, 15% + 2 for o), then
+            on the sphere's putative matches (printed, not gated);
+            known-poses on the INCREMENTAL scene (at least half its
+            landmarks, rmse < 1 px, K1 launched, and K1 on the stage's own
+            pair list and descriptor stack equal to its plain version);
+            vlad -k 64 -t 10 (every view in a pair, K2 launched, the
+            embeddings on the card within 1e-5 of their plain float64
+            version, and the Lloyd sums of the codebook's pooled rows by
+            their assignments within 1e-5 (1 + S) of seg_sum_plain in
+            float64, S the sums of |rows|); kvld-filter on the first
+            10 putative pairs (a cut; every pair keeps a match, >= 95%
+            within 4 px, one pair's VLD differences on the card within 1e-9
+            of the CPU float64 version)
   camera3   the one-command main path as users run it, every flag at its
             default but the focal: pipeline -i images -o run -f <focal>
             (camera model 3 PINHOLE_RADIAL_K3, NORMAL, EXHAUSTIVE pairs,
@@ -107,8 +130,12 @@ views).
 
 The last three lines of standard output are the kernels JSON (each
 kernel's launches on the main path, and on the sfm2, stellar and camera3
-paths as launches_v2, launches_stellar and launches_camera3; every phase's
-stage and engine seconds), then nvidia-smi's name and power limit, then
+paths as launches_v2, launches_stellar and launches_camera3, K1's in the
+matchers phase as launches_matchers and K2's in vlad as launches_vlad,
+with K1's check and times at known-poses' shape and K2's at the VLAD
+Lloyd sums' shape;
+every phase's stage and engine seconds, and each matchers step's seconds
+and readings), then nvidia-smi's name and power limit, then
 {"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
 """
 
@@ -197,7 +224,7 @@ def phase_device():
         mhz = None
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s); "
-        f"max SM clock {mhz} MHz")
+        f"max SM clock {mhz} MHz; nvidia-smi: {smi}")
     return smi, mhz
 
 
@@ -543,7 +570,7 @@ def phase_pipeline(kernel_mods, n_views, size, work):
     pairs = np.asarray(cli.load_pairs_file(os.path.join(md, "pairs.txt")), np.int32)
     return dict(secs=secs, launches=launches, stack=stack,
                 counts=np.asarray([len(d) for d in descs], np.int32), pairs=pairs,
-                work=work, sfm=sfm, md=md, gtdir=gtdir)
+                work=work, sfm=sfm, md=md, gtdir=gtdir, gt=(Rs, Cs, K, size))
 
 
 def phase_measure(two_nn, run, dev, mhz):
@@ -1017,6 +1044,377 @@ def phase_stellar(kernel_mods, run, n_views):
     return res
 
 
+def _roty(theta):
+    import numpy as np
+
+    c, s_ = math.cos(theta), math.sin(theta)
+    return np.array([[c, 0.0, s_], [0.0, 1.0, 0.0], [-s_, 0.0, c]])
+
+
+def model_sets(model, n_pairs, n_true, n_out, seed, dev="cuda"):
+    """tests/test_geometric_filter_models.py's correspondence sets, scaled
+    up and made on the card: n_pairs two-view pairs (views 2p, 2p + 1) of
+    n_true true correspondences and n_out uniform outliers, each pair with
+    its own motion.  "h": a slanted plane under upright motion; "u": a
+    point cloud under upright motion (rotation about y, translation in the
+    xz plane); "o": orthographic projection.  Returns (scene, features,
+    matches) for geometric_filter."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.sfm.scene import Scene
+
+    f, wh = 800.0, 1000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = n_true + n_out
+
+    def uni(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev,
+                                           dtype=torch.float64)
+
+    rng = np.random.default_rng(seed)
+    if model == "o":
+        X = uni(-0.3, 0.3, n_pairs, n_true, 3)
+        R = np.stack([_roty(math.radians(rng.uniform(5, 15))) @ np.array(
+            [[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1.0]])
+            for a in rng.uniform(-0.15, 0.15, n_pairs)])
+        t = np.c_[rng.uniform(-0.05, 0.05, (n_pairs, 2)), np.zeros(n_pairs)]
+        R_t, t_t = torch.as_tensor(R, device=dev), torch.as_tensor(t, device=dev)
+        xa = X[..., :2] * f + wh / 2
+        xb = (torch.einsum("pij,pnj->pni", R_t, X) + t_t[:, None])[..., :2] * f + wh / 2
+        lo, hi = 300, 700
+    else:
+        X = uni(-1, 1, n_pairs, n_true, 3)
+        X[..., 2] = (0.2 * X[..., 0] if model == "h" else X[..., 2]) + 5.0
+        R = np.stack([_roty(math.radians(a)) for a in rng.uniform(4, 12, n_pairs)])
+        C = np.c_[rng.uniform(0.3, 0.8, n_pairs), np.zeros(n_pairs), rng.uniform(-0.2, 0.2,
+                                                                                  n_pairs)]
+        R_t, C_t = torch.as_tensor(R, device=dev), torch.as_tensor(C, device=dev)
+        Xc = torch.einsum("pij,pnj->pni", R_t, X - C_t[:, None])
+        xa = X[..., :2] / X[..., 2:] * f + wh / 2
+        xb = Xc[..., :2] / Xc[..., 2:] * f + wh / 2
+        lo, hi = 100, 900
+    xa = torch.cat([xa, uni(lo, hi, n_pairs, n_out, 2)], 1).cpu().numpy()
+    xb = torch.cat([xb, uni(lo, hi, n_pairs, n_out, 2)], 1).cpu().numpy()
+    V = 2 * n_pairs
+    sc = Scene()
+    sc.view_filename = [f"v{i}.png" for i in range(V)]
+    sc.view_intrinsic = np.zeros(V, np.int32)
+    sc.view_pose = np.arange(V, dtype=np.int32)
+    sc.view_wh = np.tile([[wh, wh]], (V, 1)).astype(np.int32)
+    sc.cameras = cm.make_pinhole(wh, wh, f, wh / 2, wh / 2)
+    sc.pose_valid = np.zeros(V, bool)
+    sc.pose_R = np.tile(np.eye(3), (V, 1, 1))
+    sc.pose_C = np.zeros((V, 3))
+    feats = [x for p in range(n_pairs) for x in (xa[p], xb[p])]
+    m = np.stack([np.arange(n)] * 2, 1)
+    return sc, feats, {(2 * p, 2 * p + 1): m for p in range(n_pairs)}
+
+
+def k1_at_known_poses(two_nn, scene_path, md, dev):
+    """K1 on the pair list and descriptor stack that known-poses builds
+    (every posed pair of the scene, in launches of at most MAX_PAIRS)
+    against its plain version: d1, d2 and idx1 equal.  Returns the shape,
+    the largest |error|, the kernel's and the plain version's milliseconds
+    and the bound.  No library time: cdist over every pair at once would
+    hold P x Nmax^2 float32 distances (251 GB at 4,950 pairs of 3,562)."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.ops import matching
+    from openmvg_torch.sfm.known_poses import posed_views
+
+    scene = cli._load_scene(scene_path)
+    _, descs = cli._load_features_for_scene(scene, md)
+    pairs = list(itertools.combinations(posed_views(scene), 2))
+    stack, counts = matching.descriptor_stack(descs, dev)
+    chunks = [torch.as_tensor(np.asarray(pairs[s:s + two_nn.MAX_PAIRS], np.int32),
+                              device=dev) for s in range(0, len(pairs), two_nn.MAX_PAIRS)]
+
+    def kernel():
+        return [two_nn.two_nn_batch(stack, counts, c) for c in chunks]
+
+    got = kernel()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = [two_nn.two_nn_batch_plain(stack, counts, c) for c in chunks]
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err = 0.0
+    for g, r in zip(got, ref):
+        for x, y, what in zip(g, r, ("d1", "d2", "idx1")):
+            if not torch.equal(x, y):
+                fail(f"[matchers] K1 at known-poses' shape: {what} differs from the plain "
+                     f"version in {(x != y).sum().item()} entries")
+        err = max(err, (g[0] - r[0]).abs().max().item(), (g[1] - r[1]).abs().max().item())
+    del got, ref
+    ms = cuda_ms(kernel, 3, 1)
+    bounds = [two_nn_bound_ms(stack, counts, c, c.shape[0] * stack.shape[1]) for c in chunks]
+    bound = sum(b for b, _ in bounds)
+    log(f"[matchers] K1 at known-poses' shape ({len(pairs)} pairs in {len(chunks)} launch(es), "
+        f"Nmax {stack.shape[1]}, counts {int(counts.min())}..{int(counts.max())}): equal to "
+        f"the plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+        f"({bounds[0][1]}); {bound / ms * 100:.2f}% of the bound")
+    return dict(pairs=len(pairs), launches=len(chunks), nmax=int(stack.shape[1]),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bounds[0][1], library_ms=None)
+
+
+def k2_at_vlad_lloyd(seg_sum, vlad, pooled, centers, dev):
+    """K2 as a Lloyd iteration of the VLAD codebook runs it
+    (vlad.cluster_sums: every pooled row summed by its centre, two
+    64-column calls sharing one plan) against seg_sum_plain in float64,
+    within 1e-5 (1 + S), S the sums of |rows|.  Returns the shape, the
+    largest |error|, the times (the plan's build included, as the Lloyd
+    loop runs it) and the bound."""
+    import numpy as np
+    import torch
+
+    X = torch.as_tensor(np.asarray(pooled, np.float32), device=dev)
+    c = torch.as_tensor(np.asarray(centers, np.float32), device=dev)
+    assign = vlad.nearest_center(X, c)
+    k = c.shape[0]
+    got = vlad.cluster_sums(X, assign, k)
+    err = seg_sum_check(seg_sum, got, X, assign, k, 1e-5)
+    if err is None:
+        fail(f"[matchers] K2 at the VLAD Lloyd sums' shape ({X.shape[0]} rows x "
+             f"{X.shape[1]}, {k} centres) differs from seg_sum_plain beyond 1e-5 (1 + S)")
+    ms = cuda_ms(lambda: vlad.cluster_sums(X, assign, k), 20)
+    plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(X, assign, k), 20)
+    lib_ms = cuda_ms(lambda: library_seg_sum(X, assign, k), 20)
+    bound, by = seg_sum_bound_ms(X.shape[0], X.shape[1], k, 4)
+    log(f"[matchers] K2 at the VLAD Lloyd sums' shape ({X.shape[0]} rows x {X.shape[1]}, {k} "
+        f"centres): max |err| {err:.3g} against float64; kernel {ms:.4f} ms (two 64-column "
+        f"calls and their plan), plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); {bound / ms * 100:.2f}% of the bound")
+    return dict(O=int(X.shape[0]), D=int(X.shape[1]), num=int(k), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_matchers(kernel_mods, run, srun, n_views, dev="cuda", n_synth=256):
+    """The matching and filtering layer's other paths on the pipeline's run
+    directory, each with every kernel's count set to 0 just before and read
+    just after: cascade matching then filter f; filter -g a; filter -g f -r
+    (guided matching on K1); the models h, u and o on synthetic sets of the
+    reference test's kind (256 pairs of 400 + 100) and, ungated, on the
+    sphere's putative matches; known-poses on the INCREMENTAL scene (K1,
+    then held against its plain version at the stage's shape); vlad -k 64
+    -t 10 (K2, then the Lloyd sums held against their plain version);
+    kvld-filter on the first 10 putative pairs.  Returns each step's
+    seconds, launches and readings."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.io.features_io import load_descs, load_feats
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+    from openmvg_torch.io.sfm_data import load_sfm_data
+    from openmvg_torch.ops import kvld, seg_sum, two_nn, vlad
+    from openmvg_torch.sfm.geometric_filter import geometric_filter
+    from openmvg_torch.sfm.scene import rmse
+
+    md, sfm = run["md"], run["sfm"]
+    Rs, Cs, K, size = run["gt"]
+    n_pairs = len(run["pairs"])
+    pairs_txt = os.path.join(md, "pairs.txt")
+    put_path = os.path.join(md, "matches.putative.bin")
+    putative = load_matches(put_path)
+    plain_f = load_matches(os.path.join(md, "matches.f.bin"))
+    out = {}
+
+    def step(name, stages):
+        secs, printed, launches = run_stages(kernel_mods, stages)
+        out[name] = dict(s=sum(secs.values()), launches=launches)
+        return out[name], printed
+
+    def gate_filtered(tag, path, rec):
+        kept = load_matches(path)
+        n_ok, n_all = epipolar_check(md, kept, Rs, Cs, K, size)
+        share = n_ok / max(n_all, 1)
+        rec.update(pairs_kept=len(kept), matches=n_all, epipolar_share=share)
+        log(f"[matchers] {tag}: {len(kept)}/{n_pairs} pairs kept, {n_all} matches, "
+            f"{100 * share:.2f}% within 4 px of the ground-truth epipolar line, "
+            f"{rec['s']:.2f} s, launches {rec['launches']}")
+        if share < 0.95:
+            fail(f"[matchers] {tag}: only {100 * share:.2f}% within 4 px")
+        if len(kept) < 0.9 * n_pairs:
+            fail(f"[matchers] {tag}: only {len(kept)} of {n_pairs} pairs kept")
+        return kept
+
+    # 1. cascade hashing, then filter f on its matches
+    casc = os.path.join(md, "matches.cascade.bin")
+    rec, _ = step("cascade", [
+        ("matches", ["matches", "-i", sfm, "-o", casc, "-p", pairs_txt, "-n",
+                     "CASCADEHASHINGL2"]),
+        ("filter", ["filter", "-i", sfm, "-m", casc, "-o", os.path.join(md, "matches.cf.bin"),
+                    "-g", "f"])])
+    cm_ = load_matches(casc)
+    bf = {(p, tuple(r)) for p, m in putative.items() for r in m}
+    ch = {(p, tuple(r)) for p, m in cm_.items() for r in m}
+    rec["recall"] = len(bf & ch) / max(len(bf), 1)
+    log(f"[matchers] cascade: {len(ch)} putative matches, recall {rec['recall']:.4f} "
+        "against BRUTEFORCEL2")
+    if rec["recall"] < 0.90:
+        fail(f"[matchers] cascade recall {rec['recall']:.4f} below 0.90")
+    gate_filtered("cascade + filter -g f", os.path.join(md, "matches.cf.bin"), rec)
+
+    # 2. filter -g a
+    pa = os.path.join(md, "matches.a.bin")
+    rec, _ = step("filter_a", [("filter", ["filter", "-i", sfm, "-m", put_path, "-o", pa,
+                                           "-g", "a"])])
+    gate_filtered("filter -g a", pa, rec)
+
+    # 3. filter -g f -r (guided matching, one K1 launch for the kept pairs)
+    pr = os.path.join(md, "matches.fr.bin")
+    rec, _ = step("filter_f_r", [("filter", ["filter", "-i", sfm, "-m", put_path, "-o", pr,
+                                             "-g", "f", "-r"])])
+    kept = gate_filtered("filter -g f -r", pr, rec)
+    n_r, n_f = sum(map(len, kept.values())), sum(map(len, plain_f.values()))
+    rec["plain_f_matches"] = n_f
+    log(f"[matchers] filter -g f -r kept {n_r} matches against {n_f} for -g f; K1 launches "
+        f"{rec['launches']['two_nn']}")
+    if n_r < n_f:
+        fail(f"[matchers] guided matching kept {n_r} matches, fewer than -g f's {n_f}")
+    if rec["launches"]["two_nn"] < 1:
+        fail("[matchers] guided matching did not launch K1")
+
+    # 4. models h, u, o: synthetic sets (gated), then the sphere (not gated)
+    for model, true_share, out_share in (("h", 0.85, 0.1), ("u", 0.85, 0.1),
+                                         ("o", 0.8, 0.15)):
+        sc, feats, mset = model_sets(model, n_synth, 400, 100, seed=ord(model), dev=dev)
+        for m_ in kernel_mods:
+            m_.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = geometric_filter(sc, feats, mset, model=model, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        worst_true, worst_false = 400, 0
+        for p in mset:
+            if p not in res:
+                fail(f"[matchers] model {model} rejected synthetic pair {p}")
+            k_ = res[p][:, 0]
+            worst_true = min(worst_true, int((k_ < 400).sum()))
+            worst_false = max(worst_false, int((k_ >= 400).sum()))
+        log(f"[matchers] model {model}: {n_synth} synthetic pairs of 400 + 100 in {dt:.2f} s; "
+            f"every pair kept, the fewest true correspondences {worst_true}/400, the most "
+            f"outliers {worst_false}/100")
+        if worst_true <= true_share * 400 or worst_false > out_share * 100 + 2:
+            fail(f"[matchers] model {model}: a pair kept {worst_true}/400 true and "
+                 f"{worst_false}/100 outliers")
+        pm = os.path.join(md, f"matches.{model}.bin")
+        rec, _ = step(f"filter_{model}", [("filter", ["filter", "-i", sfm, "-m", put_path,
+                                                      "-o", pm, "-g", model])])
+        kept = load_matches(pm)
+        n_ok, n_all = epipolar_check(md, kept, Rs, Cs, K, size)
+        rec.update(synthetic_s=dt, synthetic_min_true=worst_true,
+                   synthetic_max_outliers=worst_false, pairs_kept=len(kept), matches=n_all,
+                   epipolar_share=n_ok / max(n_all, 1))
+        log(f"[matchers] filter -g {model} on the sphere (not gated): {len(kept)}/{n_pairs} "
+            f"pairs, {n_all} matches ({100 * n_ok / max(n_all, 1):.2f}% within 4 px), "
+            f"{rec['s']:.2f} s")
+
+    # 5. known-poses on the INCREMENTAL scene
+    inc = os.path.join(srun["recon"], "sfm_data.json")
+    kp = os.path.join(run["work"], "known_poses.json")
+    rec, printed = step("known_poses", [("known-poses", ["known-poses", "-i", inc, "-m", md,
+                                                         "-o", kp])])
+    scene_kp = load_sfm_data(kp)
+    rec.update(landmarks=scene_kp.n_landmarks, incremental_landmarks=srun["scene"].n_landmarks,
+               rmse_px=rmse(scene_kp))
+    log(f"[matchers] known-poses: {scene_kp.n_landmarks} landmarks (INCREMENTAL "
+        f"{srun['scene'].n_landmarks}), rmse {rec['rmse_px']:.4f} px, {rec['s']:.2f} s, "
+        f"K1 launches {rec['launches']['two_nn']}")
+    if scene_kp.n_landmarks < 0.5 * srun["scene"].n_landmarks:
+        fail("[matchers] known-poses found fewer than half the INCREMENTAL landmarks")
+    if not rec["rmse_px"] < 1.0:
+        fail(f"[matchers] known-poses rmse {rec['rmse_px']:.4f} px")
+    if rec["launches"]["two_nn"] < 1:
+        fail("[matchers] known-poses did not launch K1")
+    rec["k1_at_shape"] = k1_at_known_poses(two_nn, inc, md, dev)
+
+    # 6. vlad -k 64 -t 10, and its embeddings against their plain float64 version
+    vp = os.path.join(run["work"], "vlad_pairs.txt")
+    rec, _ = step("vlad", [("vlad", ["vlad", "-i", sfm, "-m", md, "-o", vp, "-k", "64",
+                                     "-t", "10"])])
+    from openmvg_torch import cli
+
+    vpairs = cli.load_pairs_file(vp)
+    seen = {v for p in vpairs for v in p}
+    near = sum(1 for i, j in vpairs if min(abs(i - j), n_views - abs(i - j)) <= 6)
+    descs = [load_descs(os.path.join(md, f"img_{v:02d}.desc")) for v in range(n_views)]
+    pooled = np.concatenate([d[:500] for d in descs if len(d)])
+    centers = vlad.build_codebook(torch.Generator().manual_seed(0), pooled, k=64, device=dev)
+    c_t = torch.as_tensor(centers, device=dev)
+    desc = torch.as_tensor(np.concatenate(descs).astype(np.float32), device=dev)
+    view = torch.as_tensor(np.repeat(np.arange(n_views), [len(d) for d in descs]), device=dev)
+    assign = vlad.nearest_center(desc, c_t)
+    card = vlad.vlad_from_assign(desc, c_t, assign, view, n_views)
+    plain = vlad.vlad_from_assign(desc.double().cpu(), c_t.double().cpu(), assign.cpu(),
+                                  view.cpu(), n_views)
+    err = float((card.double().cpu() - plain).abs().max())
+    rec.update(pairs=len(vpairs), views_in_pairs=len(seen), near_share=near / max(len(vpairs), 1),
+               embedding_max_abs_err=err)
+    log(f"[matchers] vlad: {len(vpairs)} pairs, {len(seen)}/{n_views} views in a pair, "
+        f"{100 * rec['near_share']:.1f}% of the pairs within 6 views on the ring; "
+        f"embeddings on the card vs plain float64 max |err| {err:.3g}; {rec['s']:.2f} s, "
+        f"K2 launches {rec['launches']['seg_sum']}")
+    if err > 1e-5:
+        fail(f"[matchers] vlad embeddings differ from the plain float64 version by {err:.3g}")
+    if len(seen) < n_views:
+        fail(f"[matchers] vlad left {n_views - len(seen)} views out of every pair")
+    if rec["launches"]["seg_sum"] < 1:
+        fail("[matchers] vlad did not launch K2")
+    rec["k2_lloyd_at_shape"] = k2_at_vlad_lloyd(seg_sum, vlad, pooled, centers, dev)
+
+    # 7. kvld-filter on the first 10 putative pairs (a cut of the 579)
+    first = sorted(putative)[:10]
+    sub, kv = os.path.join(md, "matches.sub10.bin"), os.path.join(md, "matches.kvld.bin")
+    save_matches({p: putative[p] for p in first}, sub)
+    log(f"[matchers] kvld-filter CUT: the first {len(first)} of {len(putative)} putative "
+        "pairs")
+    rec, _ = step("kvld", [("kvld-filter", ["kvld-filter", "-i", sfm, "-m", sub, "-o", kv])])
+    kept = load_matches(kv)
+    n_ok, n_all = epipolar_check(md, kept, Rs, Cs, K, size)
+    i, j = first[0]
+    m0 = putative[(i, j)]
+    fi, fj = (load_feats(os.path.join(md, f"img_{v:02d}.feat")) for v in (i, j))
+    scene = load_sfm_data(sfm)
+    imgs = [np.asarray(read_image(os.path.join(scene.root_path, scene.view_filename[v]),
+                                  grayscale=True), np.float64) * 255.0 for v in (i, j)]
+    rng = np.random.default_rng(0)
+    a, b = rng.integers(0, len(m0), (2, 2048))
+    diffs = []
+    for d in (dev, "cpu"):
+        p1, p2 = (kvld.pyramid_on(kvld.build_image_scale(im), d) for im in imgs)
+
+        def pts(f, side, idx):
+            return torch.as_tensor(f[m0[idx, side], :2].astype(np.float64), device=d)
+
+        diffs.append(kvld.vld_pair_diff(p1, p2, pts(fi, 0, a), pts(fi, 0, b), pts(fj, 1, a),
+                                        pts(fj, 1, b)).cpu())
+    verr = float((diffs[0] - diffs[1]).abs().max())
+    rec.update(pairs=len(first), pairs_kept=len(kept), matches=n_all,
+               epipolar_share=n_ok / max(n_all, 1), vld_max_abs_err=verr)
+    log(f"[matchers] kvld-filter: {len(kept)}/{len(first)} pairs keep matches, {n_all} "
+        f"matches, {100 * rec['epipolar_share']:.2f}% within 4 px; pair {(i, j)}: 2048 VLD "
+        f"differences on the card vs the CPU float64 version max |err| {verr:.3g}; "
+        f"{rec['s']:.2f} s")
+    if len(kept) < len(first):
+        fail(f"[matchers] kvld-filter left {len(first) - len(kept)} pairs without a match")
+    if rec["epipolar_share"] < 0.95:
+        fail(f"[matchers] kvld-filter: only {100 * rec['epipolar_share']:.2f}% within 4 px")
+    if verr > 1e-9:
+        fail(f"[matchers] VLD differences on the card differ from the CPU by {verr:.3g}")
+    out["launches_two_nn"] = sum(r["launches"]["two_nn"] for r in out.values())
+    out["launches_seg_sum_vlad"] = out["vlad"]["launches"]["seg_sum"]
+    return out
+
+
 class StageClock(Tee):
     """A Tee that notes the time each `pipeline` stage starts (its
     "=== openmvg_torch <stage>" line)."""
@@ -1372,6 +1770,7 @@ def main():
         v2run = phase_sfm2(mods, run, args.views)
         grun = phase_global(mods, run, args.views)
         strun = phase_stellar(mods, run, args.views)
+        mrun = phase_matchers(mods, run, srun, args.views)
         c3_views = min(args.views, 24)
         log(f"[camera3] CUT: {c3_views} views of {args.size}^2, "
             f"{c3_views * (c3_views - 1) // 2} exhaustive pairs (the realistic scale is "
@@ -1400,7 +1799,8 @@ def main():
         "max_sm_clock_mhz": mhz, "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
                              "library_ms": kres["headline_lib_ms"],
                              "bound_ms": kres["headline_bound_ms"]},
-        **new_paths("two_nn"),
+        **new_paths("two_nn"), "launches_matchers": mrun["launches_two_nn"],
+        "known_poses_shape": mrun["known_poses"]["k1_at_shape"],
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
@@ -1411,6 +1811,8 @@ def main():
         "shape": {"O": k2["O"], "P": k2["P"], "I": k2["I"]}, "camera_jtj": m2["jtj"],
         "generic_jtr_k6": m2["jtr_k6"], "generic_jtj_k36": m2["jtj_k36"],
         "launches_global": grun["launches"]["seg_sum"], **new_paths("seg_sum"),
+        "launches_vlad": mrun["launches_seg_sum_vlad"],
+        "vlad_lloyd_shape": mrun["vlad"]["k2_lloyd_at_shape"],
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
@@ -1436,7 +1838,8 @@ def main():
         "camera3_views": c3_views, "camera3_s": c3run["secs"],
         "camera3_pipeline_s": c3run["pipeline_s"], "camera3_engine_s": c3run["engine"],
         "camera3_polish_steps": c3run["polish_steps"], "camera3_k123": c3run["k123"],
-        "camera3_peak_device_gib": c3run["peak_device_gib"], "camera3_eval": evals(c3run)}
+        "camera3_peak_device_gib": c3run["peak_device_gib"], "camera3_eval": evals(c3run),
+        "matchers": {k: v for k, v in mrun.items() if isinstance(v, dict)}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

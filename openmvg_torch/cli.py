@@ -5,8 +5,10 @@ one-command pipeline and eval).
   init      main_SfMInit_ImageListing.cpp  (EXIF -> sfm_data.json)
   features  main_ComputeFeatures.cpp       (SIFT, presets)
   pairs     main_PairGenerator.cpp         (EXHAUSTIVE | CONTIGUOUS)
-  matches   main_ComputeMatches.cpp        (brute-force L2, ratio 0.8)
-  filter    main_GeometricFilter.cpp       (AC-RANSAC f | e, 4 px, 2048 it)
+  matches   main_ComputeMatches.cpp        (brute-force L2 on K1, cascade
+                                            hashing, kd-tree; ratio 0.8)
+  filter    main_GeometricFilter.cpp       (AC-RANSAC f|e|h|a|u|o, 4 px (o: 2),
+                                            2048 it; -r guided matching)
   sfm       main_SfM.cpp                   (INCREMENTAL | INCREMENTALV2 | GLOBAL |
                                             STELLAR; sfm_data .json or .bin, the
                                             HTML report)
@@ -15,6 +17,9 @@ one-command pipeline and eval).
   report    sfm_report.cpp                 (SfMReconstruction_Report.html)
   convert   main_ConvertSfM_DataFormat.cpp (.json | .bin | .xml, part flags)
   points-filter main_PointsFiltering.cpp   (depth cleaning)
+  known-poses main_ComputeStructureFromKnownPoses.cpp
+  vlad      main_ComputeVLAD.cpp           (retrieval pair list)
+  kvld-filter matching/kvld                (K-VLD match verification)
   pipeline  SfM_SequentialPipeline.py /    (init .. color in one command; GLOBAL
             SfM_GlobalPipeline.py           filters with e)
 
@@ -225,29 +230,13 @@ def _load_features_for_scene(scene, matchdir):
     return feats, descs
 
 
-def match_descriptor_lists(descs, pairs, ratio, device):
-    """Brute-force matches of every pair: the descriptors go to `device` as
-    one (V, Nmax, 128) stack, and each batch of pairs is one K1 launch on
-    CUDA.  Returns {(i, j): (M, 2) int64}."""
-    from openmvg_torch.ops import matching
-    from openmvg_torch.ops.two_nn import MAX_PAIRS
-
-    nmax = max(max((len(d) for d in descs), default=0), 1)
-    stack = np.zeros((len(descs), nmax, 128), np.uint8)
-    counts = np.zeros(len(descs), np.int32)
-    for v, d in enumerate(descs):
-        stack[v, :len(d)] = d
-        counts[v] = len(d)
-    stack_t = torch.as_tensor(stack, device=device)
-    counts_t = torch.as_tensor(counts, device=device)
-    out = {}
-    for s in range(0, len(pairs), MAX_PAIRS):
-        chunk = np.asarray(pairs[s:s + MAX_PAIRS], np.int32).reshape(-1, 2)
-        res = matching.match_pair_batch(stack_t, counts_t,
-                                        torch.as_tensor(chunk, device=device),
-                                        ratio=ratio)
-        out.update(matching.matches_to_dict(chunk, res))
-    return out
+def matcher_of(name):
+    """-n value -> the matcher of ops.matching.match_descriptor_lists, as the
+    reference maps it (any other name is brute force)."""
+    name = name.upper()
+    if name in ("FASTCASCADEHASHINGL2", "CASCADEHASHINGL2"):
+        return "cascade"
+    return "kdtree" if name in ("ANNL2", "KDTREE") else "bruteforce"
 
 
 def cmd_matches(args):
@@ -255,21 +244,21 @@ def cmd_matches(args):
     from openmvg_torch.ops import matching
     from openmvg_torch.utils.graph import exhaustive_pairs
 
-    mname = args.nearest_matching_method.upper()
-    if mname not in ("AUTO", "BRUTEFORCEL2"):
-        raise NotImplementedError(
-            f"matcher {mname} is not ported yet: cascade hashing and the "
-            "kd-tree matcher come with a later slice of the port (ROADMAP "
-            "queue 1, item 11); use AUTO or BRUTEFORCEL2")
     if args.ring_matching == "on":
         raise NotImplementedError(
             "ring matching streams descriptors across devices; it comes with "
-            "the multi-GPU slice of the port (ROADMAP queue 1, item 14)")
+            "the multi-GPU slice of the port (ROADMAP queue 1, item 9)")
     scene = _load_scene(args.input_file)
     matchdir = args.matchdir or os.path.dirname(args.output_file)
     feats, descs = _load_features_for_scene(scene, matchdir)
     pairs = (load_pairs_file(args.pair_list) if args.pair_list
              else exhaustive_pairs(scene.n_views))
+    kw = dict(method=matcher_of(args.nearest_matching_method))
+    if kw["method"] == "cascade":
+        # the port's own hyperplanes (seed 0) and view 0's descriptor mean
+        kw["proj"] = matching.make_hash_projections(0, device=args.device)
+        d0 = np.asarray(descs[0]) if len(descs[0]) else np.zeros((1, 128), np.uint8)
+        kw["mean"] = torch.as_tensor(d0.mean(0).astype(np.float32), device=args.device)
     t0 = time.time()
     if args.preemptive_count:
         # preemptive pair pruning (main_ComputeMatches.cpp:55-57,185-187,328):
@@ -277,12 +266,12 @@ def cmd_matches(args):
         k = args.preemptive_count
         sub = [matching.preemptive_subset(feats[v], descs[v], k)[1]
                for v in range(scene.n_views)]
-        pre = match_descriptor_lists(sub, pairs, args.ratio, args.device)
+        pre = matching.match_descriptor_lists(sub, pairs, args.ratio, args.device, **kw)
         thr = 0.08 * k
         pairs = [pq for pq, m in pre.items() if len(m) >= thr]
         print(f"preemptive: kept {len(pairs)} pairs "
               f"(>= {thr:.0f} of {k} feats matched)")
-    out = match_descriptor_lists(descs, pairs, args.ratio, args.device)
+    out = matching.match_descriptor_lists(descs, pairs, args.ratio, args.device, **kw)
     save_matches(out, args.output_file)
     n_m = sum(len(m) for m in out.values())
     print(f"{len(out)} matched pairs, {n_m} putative matches "
@@ -295,12 +284,13 @@ def cmd_filter(args):
     from openmvg_torch.sfm.geometric_filter import geometric_filter
 
     scene = _load_scene(args.input_file)
-    feats, _ = _load_features_for_scene(scene, os.path.dirname(args.matches))
+    feats, descs = _load_features_for_scene(scene, os.path.dirname(args.matches))
     putative = load_matches(args.matches)
     t0 = time.time()
+    # per-model default threshold inside geometric_filter (4.0 px; 2.0 for o)
     filtered = geometric_filter(
         scene, feats, putative, model=args.geometric_model,
-        n_samples=args.max_iteration, guided=args.guided_matching,
+        n_samples=args.max_iteration, guided=args.guided_matching, descs=descs,
         device=args.device)
     save_matches(filtered, args.output_file)
     n_m = sum(len(m) for m in filtered.values())
@@ -429,6 +419,78 @@ def cmd_points_filter(args):
     scene.compact_structure()
     save_sfm_data(scene, args.output_file)
     print(f"min median depth = {min_median}; {scene.n_landmarks} landmarks kept")
+    return 0
+
+
+def cmd_known_poses(args):
+    """main_ComputeStructureFromKnownPoses: guided matching of every posed
+    pair (K1 on the card), tracks and triangulation."""
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm.known_poses import structure_from_known_poses
+    from openmvg_torch.sfm.scene import rmse
+
+    scene = _load_scene(args.input_file)
+    feats, descs = _load_features_for_scene(scene, args.match_dir)
+    structure_from_known_poses(scene, feats, descs, device=args.device)
+    save_sfm_data(scene, args.output_file)
+    print(f"structure: {scene.n_landmarks} landmarks, rmse={rmse(scene):.3f}")
+    return 0
+
+
+def cmd_vlad(args):
+    """main_ComputeVLAD: a retrieval pair list from VLAD embeddings over a
+    k-means codebook of the pooled descriptors (sums on K2 on the card)."""
+    from openmvg_torch.ops import vlad
+
+    scene = _load_scene(args.input_file)
+    _, descs = _load_features_for_scene(scene, args.match_dir)
+    pooled = np.concatenate([d[:500] for d in descs if len(d)])
+    centers = vlad.build_codebook(torch.Generator().manual_seed(0), pooled,
+                                  k=args.codebook_size, device=args.device)
+    vlads = vlad.vlad_embeddings(descs, centers, device=args.device).cpu().numpy()
+    pairs = vlad.retrieve_pairs(vlads, top_k=args.top_k)
+    with open(args.output_file, "w") as f:
+        for i, j in pairs:
+            f.write(f"{i} {j}\n")
+    print(f"{len(pairs)} retrieval pairs")
+    return 0
+
+
+def cmd_kvld_filter(args):
+    """K-VLD photometric match verification of putative matches
+    (matching/kvld): per pair, keep the matches with >= K consistent
+    neighbours; the VLD differences run on the device."""
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+    from openmvg_torch.ops.kvld import kvld_filter
+
+    scene = _load_scene(args.input_file)
+    matchdir = args.matchdir or os.path.dirname(args.matches)
+    feats, _ = _load_features_for_scene(scene, matchdir)
+    putative = load_matches(args.matches)
+    images = {}
+
+    def img_of(v):
+        if v not in images:
+            images[v] = np.asarray(read_image(
+                os.path.join(scene.root_path, scene.view_filename[v]),
+                grayscale=True), np.float64) * 255.0
+        return images[v]
+
+    def side(f):
+        return dict(xy=f[:, :2], scale=f[:, 2], orientation=f[:, 3])
+
+    out = {}
+    t0 = time.time()
+    for (i, j), m in sorted(putative.items()):
+        kept, _, valid = kvld_filter(img_of(i), img_of(j), side(feats[i]), side(feats[j]), m,
+                                     K=args.K, device=args.device)
+        if len(kept):
+            out[(i, j)] = kept
+        print(f"  ({i},{j}): {int(valid.sum())}/{len(m)} kept")
+    save_matches(out, args.output_file)
+    print(f"kvld: {len(out)}/{len(putative)} pairs kept "
+          f"in {time.time() - t0:.1f}s")
     return 0
 
 
@@ -568,6 +630,25 @@ def build_parser():
     p.add_argument("-i", "--input_file", required=True)
     p.add_argument("-o", "--output_file", required=True)
     p.add_argument("-f", "--factor", type=float, default=5.2)
+
+    p = stage("known-poses", cmd_known_poses)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--match_dir", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+
+    p = stage("vlad", cmd_vlad)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--match_dir", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-k", "--codebook_size", type=int, default=64)
+    p.add_argument("-t", "--top_k", type=int, default=10)
+
+    p = stage("kvld-filter", cmd_kvld_filter)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--matches", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-d", "--matchdir", default=None)
+    p.add_argument("-K", type=int, default=3)
 
     p = stage("pipeline", cmd_pipeline)
     p.add_argument("-i", "--imageDirectory", required=True)

@@ -1,8 +1,8 @@
-"""Batched essential-matrix estimation: 5-point (Nister), 8-point, and pose
-recovery (counterpart: openmvg_tpu/ops/essential.py, the solvers the
-incremental engine reaches; multiview/solver_essential_five_point.cpp,
-solver_essential_eight_point.cpp, essential.cpp,
-motion_from_essential.cpp).
+"""Batched essential-matrix estimation: 5-point (Nister), 8-point, the
+upright and orthographic 3-point solvers, and pose recovery (counterpart:
+openmvg_tpu/ops/essential.py; multiview/solver_essential_five_point.cpp,
+solver_essential_eight_point.cpp, solver_essential_three_point.cpp,
+essential.cpp, motion_from_essential.cpp).
 
 The 5-point solver reduces Nister's ten cubic constraints by elimination
 to a 3x3 polynomial system B(z) [x, y, 1]^T = 0 and brackets the real
@@ -246,3 +246,98 @@ def relative_pose_from_essential(E, b1, b2, weights=None):
     tt = torch.take_along_dim(t4, best[..., None, None], dim=-2).squeeze(-2)
     n_good = torch.take_along_dim(score, best[..., None], dim=-1).squeeze(-1)
     return R, tt, n_good
+
+
+# ---------------------------------------------------------------------------
+# upright (gravity-aligned) and orthographic 3-point solvers
+# (solver_essential_three_point.cpp)
+# ---------------------------------------------------------------------------
+
+def _minor3(A, cols):
+    """Determinants of the (..., 3, 3) submatrices of (..., 3, 4) A on `cols`."""
+    return linalg.det3(A[..., :, cols])
+
+
+def solve_essential_upright_3pt(b1, b2):
+    """ThreePointUprightRelativePoseSolver: for cameras that rotate about
+    the y axis and move in the horizontal plane, E has four free entries
+    (E01, E10, E12, E21), linear in the epipolar constraints.  Three
+    bearings (..., 3, 3) give a 3x4 system whose null vector is the four
+    signed 3x3 minors (closed form, no SVD); returns (E (..., 3, 3) of
+    unit norm, valid (...,)), invalid when the three rows are dependent."""
+    ax, ay, az = b1[..., 0], b1[..., 1], b1[..., 2]
+    bx, by, bz = b2[..., 0], b2[..., 1], b2[..., 2]
+    A = torch.stack([ax * by, -az * by, -bx * ay, -bz * ay], dim=-1)   # (..., 3, 4)
+    n = torch.stack([_minor3(A, [1, 2, 3]), -_minor3(A, [0, 2, 3]),
+                     _minor3(A, [0, 1, 3]), -_minor3(A, [0, 1, 2])], dim=-1)
+    nrm = torch.linalg.vector_norm(n, dim=-1)
+    valid = (nrm > 1e-300) & torch.isfinite(nrm)
+    n = n / torch.clamp(nrm, min=1e-300)[..., None]
+    zero = torch.zeros_like(n[..., 0])
+    E = torch.stack([torch.stack([zero, n[..., 2], zero], -1),
+                     torch.stack([-n[..., 0], zero, n[..., 1]], -1),
+                     torch.stack([zero, n[..., 3], zero], -1)], -2)
+    return E, valid
+
+
+def solve_essential_ortho_3pt(x1, x2):
+    """Orthographic two-view 3-point solver (Oskarsson, JMIV 2017;
+    ThreePointsRelativePose): a quartic in d reduced to a quadratic in d^2,
+    two candidates of the form [[0, 0, a], [0, 0, b], [c, d, e]].
+
+    x1, x2 (..., 3, 2) camera-plane points.  Returns E (..., 2, 3, 3) and a
+    (..., 2) validity mask; the reference's guards (|denom| < 1e-30,
+    d4_4 == 0, a negative discriminant or root) are kept as they are."""
+    xd1 = x1[..., 1, :] - x1[..., 0, :]
+    yd1 = x1[..., 2, :] - x1[..., 0, :]
+    xd2 = x2[..., 1, :] - x2[..., 0, :]
+    yd2 = x2[..., 2, :] - x2[..., 0, :]
+    one = torch.ones_like(xd1[..., 0])
+    denom = xd1[..., 0] * yd1[..., 1] - xd1[..., 1] * yd1[..., 0]
+    safe = torch.where(denom.abs() < 1e-30, one, denom)
+    aac = (xd1[..., 1] * yd2[..., 0] - xd2[..., 0] * yd1[..., 1]) / safe
+    aad = (xd1[..., 1] * yd2[..., 1] - xd2[..., 1] * yd1[..., 1]) / safe
+    bbc = (xd2[..., 0] * yd1[..., 0] - xd1[..., 0] * yd2[..., 0]) / safe
+    bbd = (xd2[..., 1] * yd1[..., 0] - xd1[..., 0] * yd2[..., 1]) / safe
+
+    aac_sq = aac * aac
+    dd_2 = -aac_sq + aad * aad - bbc * bbc + bbd * bbd
+    dd_1c = 2.0 * aac * aad + 2.0 * bbc * bbd
+    dd_0 = aac_sq + bbc * bbc - 1.0
+    d4_4 = dd_1c * dd_1c + dd_2 * dd_2
+    d4_2 = -dd_1c * dd_1c + 2.0 * dd_0 * dd_2
+    d4_0 = dd_0 * dd_0
+    disc = d4_2 * d4_2 - 4.0 * d4_4 * d4_0
+    ok_disc = disc >= 0
+    tmp = torch.sqrt(torch.clamp(disc, min=0.0))
+
+    def build(root):
+        ratio = -root / torch.where(d4_4 == 0, one, d4_4) / 2.0
+        ok = ok_disc & (ratio >= 0) & (d4_4 != 0)
+        dsol = torch.sqrt(torch.clamp(ratio, min=0.0))
+        den = 2.0 * aac * aad * dsol + 2.0 * bbc * bbd * dsol
+        csol = -(dd_2 * dsol * dsol + aac_sq + bbc * bbc - 1.0) / \
+            torch.where(den.abs() < 1e-30, one, den)
+        asol = aac * csol + aad * dsol
+        bsol = bbc * csol + bbd * dsol
+        esol = (-asol * x1[..., 0, 0] - bsol * x1[..., 0, 1]
+                - csol * x2[..., 0, 0] - dsol * x2[..., 0, 1])
+        zero = torch.zeros_like(asol)
+        E = torch.stack([torch.stack([zero, zero, asol], -1),
+                         torch.stack([zero, zero, bsol], -1),
+                         torch.stack([csol, dsol, esol], -1)], -2)
+        return E, ok
+
+    E_a, ok_a = build(d4_2 + tmp)
+    E_b, ok_b = build(d4_2 - tmp)
+    return torch.stack([E_a, E_b], dim=-3), torch.stack([ok_a, ok_b], dim=-1)
+
+
+def ortho_essential_error_sq(E, x1, x2):
+    """Squared algebraic error x1h^T E x2h of orthographic E on (..., N, 2)
+    points (the solver's convention, solver_essential_three_point.cpp:66-79)."""
+    ones = torch.ones(x1.shape[:-1] + (1,), dtype=x1.dtype, device=x1.device)
+    x1h = torch.cat([x1, ones], dim=-1)
+    x2h = torch.cat([x2, ones], dim=-1)
+    val = torch.einsum("...ni,...ij,...nj->...n", x1h, E, x2h)
+    return val * val

@@ -37,7 +37,7 @@ def _check_method(method):
     if method.startswith("AKAZE"):
         raise NotImplementedError(
             f"describer {method} is not ported yet: AKAZE comes with the "
-            "describers slice of the port (ROADMAP queue 1, item 12)")
+            "describers slice of the port (ROADMAP queue 1, item 7)")
     if method not in ("SIFT", "SIFT_ANATOMY"):
         raise ValueError(f"unknown describer method {method}")
     return method

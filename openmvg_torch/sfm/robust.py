@@ -1,10 +1,14 @@
 """Robust estimation, the AC-RANSAC kernel layer (counterpart:
-openmvg_tpu/sfm/robust.py): fundamental F and essential E for the
-geometric filter, relative pose and resection for the engines, and the
-batched pose-only refine.
+openmvg_tpu/sfm/robust.py): the geometric filter's models (F, H, E and the
+angular, upright and orthographic essential kernels), relative pose and
+resection for the engines, and the batched pose-only refine.
 
 Reference parity: the GeometricFilter F functor (F_ACRobust.hpp: 7-point
-on image-size-conditioned coordinates, pixel point-to-line NFA);
+on image-size-conditioned coordinates, pixel point-to-line NFA), the H
+functor (4-point DLT, pixel transfer error, point-to-point NFA), the
+angular and upright E functors (E_ACRobust_Angular.hpp: squared-radian
+residual) and the orthographic one (Eo_Robust.hpp: algebraic residual on
+the camera plane);
 robustRelativePose (5-point E, pixel point-to-line through K, inlier
 floor 2.5 x min_samples, cheirality pose recovery; 8-point angular for
 non-pinhole pairs); ACKernelAdaptorResection_K (P3P, pixel reprojection
@@ -21,8 +25,8 @@ import torch
 
 from openmvg_torch.geometry import so3
 from openmvg_torch.models import cameras
-from openmvg_torch.ops import (conditioning, essential, fundamental, linalg, ransac,
-                               resection)
+from openmvg_torch.ops import (conditioning, essential, fundamental, homography, linalg,
+                               ransac, resection)
 
 
 def robust_fundamental_batch(generators, x1, x2, valid, w1, h1, w2, h2,
@@ -72,6 +76,42 @@ def robust_fundamental(generator, x1, x2, valid, w1, h1, w2, h2,
     return ransac.ACRansacResult(*[x[0] for x in res])
 
 
+def robust_homography_batch(generators, x1, x2, valid, w1, h1, w2, h2,
+                            n_samples=1024, precision_sq=float("inf"), gumbel=None):
+    """AC-RANSAC H for B image pairs at once (the geometric filter's model
+    "h", H_ACRobust): 4-point DLT on image-size-conditioned coordinates,
+    the pixel transfer error and point-to-point NFA.  Arguments as
+    robust_fundamental_batch; model = H (B, 3, 3), x2 ~ H x1."""
+    dt, dev = x1.dtype, x1.device
+    T1 = conditioning.preconditioner_from_size(w1, h1, dt, dev)[:, None]
+    T2 = conditioning.preconditioner_from_size(w2, h2, dt, dev)
+    T2inv = linalg.inv(T2)[:, None]
+
+    def fit(sub):
+        a, b = sub  # (B, S, 4, 2)
+        H = homography.solve_homography(conditioning.apply_transform(T1, a),
+                                        conditioning.apply_transform(T2[:, None], b))
+        H = T2inv @ H @ T1
+        return H[:, :, None], torch.ones(H.shape[:2] + (1,), dtype=torch.bool, device=dev)
+
+    def err(H, data):
+        return homography.asymmetric_error_sq(H, data[0][:, None], data[1][:, None])
+
+    return ransac.ac_ransac(
+        generators, fit, err, (x1, x2), valid, min_samples=4,
+        logalpha0=ransac.logalpha0_point_to_point(w2, h2, dtype=dt).to(dev),
+        mult_error=ransac.MULT_ERROR_POINT_TO_POINT, max_models=1,
+        n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_homography(generator, x1, x2, valid, w1, h1, w2, h2,
+                      n_samples=1024, precision_sq=float("inf"), gumbel=None):
+    """One pair (no batch dimension); gumbel (n_samples, N) or None."""
+    return _single(robust_homography_batch, generator, x1, x2, valid,
+                   *(_one(v, x1)[0] for v in (w1, h1, w2, h2)), n_samples=n_samples,
+                   precision_sq=precision_sq, gumbel=gumbel)
+
+
 # ---------------------------------------------------------------------------
 # relative pose (robustRelativePose, sfm_robust_model_estimation.cpp:29-120)
 # ---------------------------------------------------------------------------
@@ -86,20 +126,21 @@ class RelativePoseInfo(NamedTuple):
     found: torch.Tensor      # NFA < 0 and more than 2.5 x min_samples inliers
 
 
+def _fit_8pt(sub):
+    E = essential.solve_essential_8pt(*sub)
+    return E[:, :, None], torch.ones(E.shape[:2] + (1,), dtype=torch.bool, device=E.device)
+
+
+def _angular_err(E, data):
+    return essential.angular_error(E, data[0][:, None], data[1][:, None])
+
+
 def _essential_kernel(b1, b2, x1, x2, K1, K2, w2, h2, angular):
     """(fit, err, min_samples, logalpha0, mult_error, max_models) of the
     5-point pixel point-to-line kernel (ACKernelAdaptorEssential), or of
     the 8-point angular kernel (ACKernelAdaptor_AngularRadianError)."""
     if angular:
-        def fit(sub):
-            E = essential.solve_essential_8pt(*sub)
-            return E[:, :, None], torch.ones(E.shape[:2] + (1,), dtype=torch.bool,
-                                             device=E.device)
-
-        def err(E, data):
-            return essential.angular_error(E, data[0][:, None], data[1][:, None])
-
-        return fit, err, 8, ransac.LOGALPHA0_ANGULAR, ransac.MULT_ERROR_ANGULAR, 1
+        return _fit_8pt, _angular_err, 8, ransac.LOGALPHA0_ANGULAR, ransac.MULT_ERROR_ANGULAR, 1
     K1inv = linalg.inv(K1)[:, None]
     K2invT = linalg.inv(K2).transpose(-1, -2)[:, None]
 
@@ -134,6 +175,92 @@ def robust_essential(generator, b1, b2, x1, x2, K1, K2, valid, w2, h2,
         valid[None], _one(w2, b1), _one(h2, b1), n_samples=n_samples,
         precision_sq=precision_sq, gumbel=None if gumbel is None else gumbel[None])
     return ransac.ACRansacResult(*[x[0] for x in res])
+
+
+def _bearing_models(generators, fit, b1, b2, valid, min_samples, n_samples,
+                    precision_sq, gumbel):
+    """AC-RANSAC of a one-model bearing solver with the angular residual
+    (ACKernelAdaptor_AngularRadianError)."""
+    return ransac.ac_ransac(generators, fit, _angular_err, (b1, b2), valid,
+                            min_samples=min_samples,
+                            logalpha0=ransac.LOGALPHA0_ANGULAR,
+                            mult_error=ransac.MULT_ERROR_ANGULAR, max_models=1,
+                            n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_essential_angular_batch(generators, b1, b2, valid, n_samples=1024,
+                                   precision_sq=math.inf, gumbel=None):
+    """8-point AC-RANSAC on bearings (B, N, 3) with the angular residual:
+    the geometric filter's model "a" (E_ACRobust_Angular.hpp).  Returns
+    ACRansacResult with model = E (B, 3, 3)."""
+    return _bearing_models(generators, _fit_8pt, b1, b2, valid, 8, n_samples, precision_sq,
+                           gumbel)
+
+
+def robust_essential_upright_batch(generators, b1, b2, valid, n_samples=1024,
+                                   precision_sq=math.inf, gumbel=None):
+    """3-point upright AC-RANSAC on bearings with the angular residual: the
+    geometric filter's model "u" (GeometricFilter_ESphericalMatrix_AC_Angular
+    with ThreePointUprightRelativePoseSolver, main_GeometricFilter.cpp:350-356)."""
+    def fit(sub):
+        E, ok = essential.solve_essential_upright_3pt(*sub)
+        return E[:, :, None], ok[:, :, None]
+
+    return _bearing_models(generators, fit, b1, b2, valid, 3, n_samples, precision_sq,
+                           gumbel)
+
+
+def robust_essential_ortho_batch(generators, x1, x2, valid, w2, h2, precision_sq,
+                                 n_samples=1024, gumbel=None):
+    """3-point orthographic-E AC-RANSAC on camera-plane points (B, N, 2):
+    the geometric filter's model "o" (GeometricFilter_EOMatrix_RA,
+    Eo_Robust.hpp:105-120).  precision_sq (B,) is per pair, already in
+    camera-plane units (Eo_Robust.hpp:96-100); the NFA's logalpha0 stays on
+    the image size, as the reference kernel's does.  Two models a sample."""
+    def fit(sub):
+        return essential.solve_essential_ortho_3pt(*sub)
+
+    def err(E, data):
+        return essential.ortho_essential_error_sq(E, data[0][:, None], data[1][:, None])
+
+    la0 = ransac.logalpha0_point_to_line(w2, h2, 0.5, dtype=x1.dtype).to(x1.device)
+    return ransac.ac_ransac(generators, fit, err, (x1, x2), valid, min_samples=3,
+                            logalpha0=la0, mult_error=ransac.MULT_ERROR_POINT_TO_LINE,
+                            max_models=2, n_samples=n_samples, precision_sq=precision_sq,
+                            gumbel=gumbel)
+
+
+def _single(batch_fn, generator, *args, gumbel=None, **kw):
+    """One problem through a batch form: every tensor argument gains and
+    the result loses a leading dimension of 1."""
+    def lift(a):
+        return a[None] if torch.is_tensor(a) else a
+
+    res = batch_fn([generator], *map(lift, args), gumbel=None if gumbel is None else gumbel[None],
+                   **kw)
+    return ransac.ACRansacResult(*[x[0] for x in res])
+
+
+def robust_essential_angular(generator, b1, b2, valid, n_samples=1024,
+                             precision_sq=math.inf, gumbel=None):
+    """One pair (no batch dimension)."""
+    return _single(robust_essential_angular_batch, generator, b1, b2, valid,
+                   n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_essential_upright(generator, b1, b2, valid, n_samples=1024,
+                             precision_sq=math.inf, gumbel=None):
+    """One pair (no batch dimension)."""
+    return _single(robust_essential_upright_batch, generator, b1, b2, valid,
+                   n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_essential_ortho(generator, x1, x2, valid, w2, h2, n_samples=1024,
+                           precision_sq=math.inf, gumbel=None):
+    """One pair (no batch dimension); w2, h2 and precision_sq scalars."""
+    return _single(robust_essential_ortho_batch, generator, x1, x2, valid, _one(w2, x1)[0],
+                   _one(h2, x1)[0], _one(precision_sq, x1)[0], n_samples=n_samples,
+                   gumbel=gumbel)
 
 
 def _relative_pose_info(res, b1, b2, min_samples):
