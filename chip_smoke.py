@@ -107,6 +107,42 @@ last line is printed):
             steps are printed, not gated (the polish takes one shared
             PINHOLE only); prints each stage's seconds and the peak device
             memory
+  describers features -m AKAZE_FLOAT and -m AKAZE_MLDB through the CLI on
+            the pipeline's run directory (image_describer.json names, .desc
+            of 64 float32 and 60 uint8 values a feature), each matched on the
+            CONTIGUOUS pairs with every kernel's count set to 0 just before
+            and read just after (FLOAT: one K1 launch at D = 64, held to
+            two_nn_batch_plain within 1e-4 (1 + |d|) and timed beside its
+            bound and cdist + topk; MLDB: batched Hamming products, the loop's
+            first batch equal to a plain popcount 2-NN in every distance,
+            match and mask) and filtered with -g f (FLOAT: >= 90%
+            of pairs kept, >= 95% within 4 px of the ground-truth epipolar
+            line; MLDB: every pair with putative matches, the rest printed);
+            one view warped on the card by the reference test's homography
+            (12 deg, scale 1.15): >= 30 AKAZE_FLOAT matches, >= 70% of them
+            within 3 px of it; FAST, LIOP and DIPOLE (at the view's SIFT
+            keypoints) on the card against the CPU run (FAST equal, the
+            descriptors within 1e-5), MSER and TBMR (host code) counted and
+            timed
+  spherical 100 SPHERICAL views of 5376x2688 on the reference ring, about
+            300,000 observations of points all around the ring, each seen by
+            the 5 to 17 views nearest it (short tracks chained around the
+            ring, many across the panoramas' seam), 0.5 px noise, 10% outlier
+            matches, pairs up to 3 ring steps apart
+            (utils/synthetic.py spherical_room_dataset); filter -g a, then
+            sfm -s INCREMENTAL (K3 off) and sfm -s GLOBAL with
+            OMT_FUSED_SMATVEC=1, each with the kernels' counts set to 0 just
+            before and read just after: >= 98 poses, position rmse after
+            7-DoF alignment <= 0.004 (0.2% of the ring radius), rmse < 1 px,
+            K2 launched, K3 in GLOBAL only, 0 polish steps, no triplet stage
+  cubify    one seeded 5376x2688 RGB panorama written as PNG through the CLI's
+            cubify on the card; the six faces within 1 gray level of the
+            port's CPU run of the same resampler
+  vo        60 rendered 1024^2 views of the textured sphere 0.014 rad apart
+            (about 5-10 px of motion a frame) through the CLI's vo on the
+            card: >= 90% of the frames add a pose, and the median angle
+            between estimated and true step directions, both in the first
+            camera's frame, is under 10 degrees
   measure   K1 on the matches stage's own descriptor stack and pair list
             (beside its bound, the epilogue floor); K2's fused camera_jtu
             and camera_jtj on the final INCREMENTAL bundle adjustment's own
@@ -132,10 +168,11 @@ The last three lines of standard output are the kernels JSON (each
 kernel's launches on the main path, and on the sfm2, stellar and camera3
 paths as launches_v2, launches_stellar and launches_camera3, K1's in the
 matchers phase as launches_matchers and K2's in vlad as launches_vlad,
-with K1's check and times at known-poses' shape and K2's at the VLAD
-Lloyd sums' shape;
-every phase's stage and engine seconds, and each matchers step's seconds
-and readings), then nvidia-smi's name and power limit, then
+with K1's check and times at known-poses' shape and at AKAZE_FLOAT's
+64-d float32 shape, K2's at the VLAD Lloyd sums' shape, and K2's and K3's
+launches in the spherical phase;
+every phase's stage and engine seconds, and each matchers, describers,
+spherical, cubify and vo step's seconds and readings), then nvidia-smi's name and power limit, then
 {"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
 """
 
@@ -186,6 +223,15 @@ def device_ms(fn, reps, kernel):
     """Mean device time per call of the kernels whose name contains
     `kernel`, from torch.profiler over `reps` calls, and their launch count
     (None, 0 when the profiler saw none of them)."""
+    return device_ms_by_kernel(fn, reps, (kernel,))[kernel]
+
+
+def device_ms_by_kernel(fn, reps, kernels):
+    """device_ms for several kernel names from one torch.profiler session
+    over `reps` calls of fn: {name: (ms a call or None, launches)}.  One
+    session, because on the H100 a session that followed another in the
+    same process lost every launch of a kernel (K1's measure in a call of
+    this script read none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -196,9 +242,13 @@ def device_ms(fn, reps, kernel):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and kernel in e.name()]
-    return (sum(durs) / 1e6 / reps if durs else None), len(durs)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    out = {}
+    for kernel in kernels:
+        durs = [e.duration_ns() for e in events if kernel in e.name()]
+        out[kernel] = (sum(durs) / 1e6 / reps if durs else None), len(durs)
+    return out
 
 
 def fmt_ms(x):
@@ -573,9 +623,11 @@ def phase_pipeline(kernel_mods, n_views, size, work):
                 work=work, sfm=sfm, md=md, gtdir=gtdir, gt=(Rs, Cs, K, size))
 
 
-def phase_measure(two_nn, run, dev, mhz):
+def phase_measure(two_nn, run, dev, mhz, akaze=None):
     """K1 at the main path's shapes: the whole matches batch in one launch;
-    CUDA-event and device-only time, the bound and the epilogue floor."""
+    CUDA-event and device-only time, the bound and the epilogue floor.
+    `akaze` (AKAZE_FLOAT's stack, counts and pairs) gets its device time
+    from the same profiler session."""
     import torch
 
     descs = torch.as_tensor(run["stack"], device=dev)
@@ -589,8 +641,18 @@ def phase_measure(two_nn, run, dev, mhz):
         if not torch.equal(x, y):
             fail(f"two_nn on the pipeline batch: {what} differs")
     ms = cuda_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 5, 1)
-    dev_ms, n_k = device_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 5,
-                            "two_nn_u8_kernel")
+
+    def both():
+        two_nn.two_nn_batch(descs, counts, pairs)
+        if akaze is not None:
+            two_nn.two_nn_batch(*akaze)
+
+    per_kernel = device_ms_by_kernel(both, 5, ("two_nn_u8_kernel", "two_nn_f32_kernel"))
+    dev_ms, n_k = per_kernel["two_nn_u8_kernel"]
+    f32_ms, f32_n = per_kernel["two_nn_f32_kernel"]
+    if akaze is not None:
+        log(f"[measure] two_nn at AKAZE_FLOAT's shape (float32, D 64): device {fmt_ms(f32_ms)}, "
+            f"{f32_n} launches in 5 calls")
     floor = two_nn_epilogue_floor_ms(counts, pairs, mhz)
     plain_ms = cuda_ms(lambda: two_nn.two_nn_batch_plain(descs, counts, pairs), 1, 1)
 
@@ -607,7 +669,7 @@ def phase_measure(two_nn, run, dev, mhz):
         f"{plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}); "
         f"{bound / ms * 100:.2f}% of the bound; epilogue floor {fmt_ms(floor)}")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by=by, epilogue_floor_ms=floor)
+                bound_by=by, epilogue_floor_ms=floor, akaze_float_device_ms=f32_ms)
 
 
 class Tee(io.StringIO):
@@ -1493,6 +1555,494 @@ def phase_camera3(kernel_mods, n_views, size, work):
                 pipeline_s=t_end - t0, peak_device_gib=peak_gb, n_pairs=n_pairs)
 
 
+def warp_pair_h(size, angle_deg=12.0, scale=1.15):
+    """The homography of the reference's warp test (tests/test_sift_quality.py
+    _warp_pair): a rotation by angle_deg and a scale about the centre,
+    mapping original pixels to warped pixels."""
+    import numpy as np
+
+    c = size / 2.0
+    a = math.radians(angle_deg)
+    R = np.array([[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]) * scale
+    H = np.eye(3)
+    H[:2, :2] = R
+    H[:2, 2] = c - R @ [c, c]
+    return H
+
+
+def popcount_hamming(a, b):
+    """Plain Hamming distances of packed descriptors a (N, B), b (M, B)
+    uint8 by an integer popcount table, byte by byte: (N, M) int32."""
+    import torch
+
+    lut = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32,
+                       device=a.device)
+    ham = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int32, device=a.device)
+    for k in range(a.shape[1]):
+        ham += lut[(a[:, None, k] ^ b[None, :, k]).long()]
+    return ham
+
+
+def mldb_batch_check(stack, counts, pairs_np, res, ratio=0.8):
+    """One batch of the MLDB loop against a plain popcount 2-NN, pair by
+    pair: the sign-code product equals the popcount at every distance, and
+    on the valid rows the batch's distance, match (first minimum) and mask
+    (ratio d1 < 0.8 d2, then the best row per right index, lowest row on
+    ties) are equal.  Returns the pair count; fails on any difference."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.ops import matching
+
+    bits = stack.shape[-1] * 8
+    for p, (i, j) in enumerate(pairs_np.tolist()):
+        a, b = stack[i, :counts[i]], stack[j, :counts[j]]
+        ham = popcount_hamming(a, b)
+        prod = (bits - matching._unpack_bits_pm1(a) @ matching._unpack_bits_pm1(b).T) * 0.5
+        if not torch.equal(prod, ham.to(prod.dtype)):
+            fail(f"[describers] AKAZE_MLDB pair {(i, j)}: the Hamming product differs from "
+                 f"the popcount by {int((prod - ham).abs().max())}")
+        idx1 = torch.argmin(ham, 1)
+        d1 = ham.gather(1, idx1[:, None])[:, 0].to(torch.float32)
+        d2 = ham.scatter(1, idx1[:, None], bits + 1).min(1).values.to(torch.float32)
+        keep = (d1 < ratio * d2).cpu().numpy()     # in float32, as the matcher
+        d1, idx1 = d1.cpu().numpy(), idx1.cpu().numpy()
+        seen = np.zeros(b.shape[0], bool)
+        mask = np.zeros(len(d1), bool)
+        for r in np.lexsort((np.arange(len(d1)), d1)):
+            if keep[r] and not seen[idx1[r]]:
+                seen[idx1[r]] = mask[r] = True
+        n = len(d1)
+        got = (res.dist[p, :n].cpu().numpy(), res.idx_b[p, :n].cpu().numpy(),
+               res.mask[p, :n].cpu().numpy())
+        if not (np.array_equal(got[0], d1) and np.array_equal(got[1], idx1)
+                and np.array_equal(got[2], mask)):
+            fail(f"[describers] AKAZE_MLDB pair {(i, j)} of the batch: distances, matches or "
+                 "masks differ from the plain popcount 2-NN")
+        if res.mask[p, n:].any():
+            fail(f"[describers] AKAZE_MLDB pair {(i, j)}: a padded row is marked as a match")
+    return len(pairs_np)
+
+
+def k1_at_akaze_float(two_nn, stack, counts, pairs):
+    """K1 on AKAZE_FLOAT's (V, Nmax, 64) float32 stack and the pair list in
+    one launch, against two_nn_batch_plain: d1 and d2 within 1e-4 (1 + |d|),
+    idx1 equal away from near-ties; times (events), the bound and the cdist
+    + topk yardstick (16 pairs a call).  Its device time is taken by
+    phase_measure, in the same profiler session as the matches batch's."""
+    import torch
+
+    P, nmax = pairs.shape[0], stack.shape[1]
+    got = two_nn.two_nn_batch(stack, counts, pairs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = two_nn.two_nn_batch_plain(stack, counts, pairs)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    valid = torch.arange(nmax, device=stack.device)[None, :] < counts[pairs[:, 0].long()][:, None]
+    err = 0.0
+    for x, y, what in zip(got[:2], ref[:2], ("d1", "d2")):
+        bad = valid & ((x - y).abs() > 1e-4 * (1 + y.abs()))
+        if bad.any():
+            fail(f"[describers] K1 at D = 64: {what} outside 1e-4 (1 + |d|) in "
+                 f"{int(bad.sum())} entries")
+        err = max(err, float(((x - y).abs() * valid).max()))
+    near_tie = (ref[1] - ref[0]) <= 2e-4 * (1 + ref[0])
+    bad = valid & (got[2] != ref[2]) & ~near_tie
+    if bad.any():
+        fail(f"[describers] K1 at D = 64: {int(bad.sum())} indices differ away from a tie")
+    del got, ref
+    ms = cuda_ms(lambda: two_nn.two_nn_batch(stack, counts, pairs), 5, 1)
+
+    def library():
+        for s in range(0, P, 16):
+            pp = pairs[s:s + 16].long()
+            library_two_nn(stack[pp[:, 0]], stack[pp[:, 1]])
+
+    lib_ms = cuda_ms(library, 1, 1)
+    bound, by = two_nn_bound_ms(stack, counts, pairs, P * nmax, int8=False)
+    log(f"[describers] K1 at AKAZE_FLOAT's shape ({P} pairs, Nmax {nmax}, D 64 float32, counts "
+        f"{int(counts.min())}..{int(counts.max())}): max |err| {err:.3g} within 1e-4 (1 + |d|) "
+        f"of the plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+topk "
+        f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({by}); {100 * bound / ms:.2f}% of the bound")
+    return dict(pairs=P, nmax=int(nmax), dim=64, max_abs_err=err, ms=ms, device_ms=None,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def phase_describers(kernel_mods, run, dev):
+    """AKAZE_FLOAT and AKAZE_MLDB through the CLI's features on the run
+    directory, matched on the CONTIGUOUS pairs (FLOAT: one K1 launch at
+    D = 64; MLDB: batched Hamming products) and filtered with -g f; K1 at
+    D = 64 against its plain version; the warp check; FAST, MSER, TBMR,
+    LIOP and DIPOLE on one view, card against CPU."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.io.features_io import load_descs, load_feats
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.ops import dipole, fast, image_ops, liop, matching, mser, tbmr, two_nn
+    from openmvg_torch.sfm.describer import describe_image
+    from openmvg_torch.sfm.geometric_filter import geometric_filter
+
+    work, sfm = run["work"], run["sfm"]
+    Rs, Cs, K, size = run["gt"]
+    n_views = len(run["counts"])
+    scene = cli._load_scene(sfm)
+    pairs_np = run["pairs"]
+    pairs = torch.as_tensor(pairs_np, device=dev)
+    n_pairs = len(pairs_np)
+    out = {}
+    names = {"AKAZE_FLOAT": ("AKAZE_Image_describer_SURF", "AKAZE_Float_Regions", 64, np.float32),
+             "AKAZE_MLDB": ("AKAZE_Image_describer_MLDB", "AKAZE_Binary_Regions", 60, np.uint8)}
+    for method, (dname, rname, dim, dt) in names.items():
+        md = os.path.join(work, "matches_" + method.lower())
+        secs, _, _ = run_stages(kernel_mods, [("features", ["features", "-i", sfm, "-o", md,
+                                                             "-m", method])])
+        with open(os.path.join(md, "image_describer.json")) as f:
+            doc = json.load(f)
+        if (doc["image_describer"]["polymorphic_name"], doc["regions_type"]["polymorphic_name"]) \
+                != (dname, rname):
+            fail(f"[describers] {method}: image_describer.json names "
+                 f"{doc['image_describer']['polymorphic_name']}, "
+                 f"{doc['regions_type']['polymorphic_name']}")
+        feats, descs = [], []
+        for v in range(n_views):
+            stem = os.path.join(md, f"img_{v:02d}")
+            feats.append(load_feats(stem + ".feat"))
+            descs.append(load_descs(stem + ".desc", dim, dt))
+            if os.path.getsize(stem + ".desc") != 8 + len(feats[-1]) * dim * np.dtype(dt).itemsize:
+                fail(f"[describers] {method}: {stem}.desc is not {dim} {np.dtype(dt).name} a "
+                     "feature")
+        n_feat = np.array([len(f) for f in feats])
+        stack, counts = matching.descriptor_stack(descs, dev)
+        nmax = stack.shape[1]
+        col = torch.arange(nmax, device=dev)
+        for m in kernel_mods:
+            m.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if method == "AKAZE_FLOAT":
+            res = matching.match_pair_batch(stack, counts, pairs, ratio=0.8)
+            putative = matching.matches_to_dict(pairs_np, res)
+        else:
+            putative = {}
+            step = max(1, (1 << 32) // (16 * nmax * nmax))
+            for s in range(0, n_pairs, step):
+                pi, pj = pairs[s:s + step, 0].long(), pairs[s:s + step, 1].long()
+                res = matching.match_brute_force_hamming(
+                    stack[pi], stack[pj], col[None] < counts[pi][:, None],
+                    col[None] < counts[pj][:, None], ratio=0.8)
+                putative.update(matching.matches_to_dict(pairs_np[s:s + step], res))
+                if s == 0:
+                    first_batch = res
+        torch.cuda.synchronize()
+        t_match = time.perf_counter() - t
+        launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in kernel_mods}
+        t = time.perf_counter()
+        kept = geometric_filter(scene, feats, putative, model="f", device=dev)
+        torch.cuda.synchronize()
+        t_filter = time.perf_counter() - t
+        n_ok, n_all = epipolar_check(md, kept, Rs, Cs, K, size)
+        share = n_ok / max(n_all, 1)
+        rec = dict(features_s=secs["features"], match_s=t_match, filter_s=t_filter,
+                   mean_features=float(n_feat.mean()), min_features=int(n_feat.min()),
+                   max_features=int(n_feat.max()), putative_pairs=len(putative),
+                   putative_matches=int(sum(len(m) for m in putative.values())),
+                   pairs_kept=len(kept), matches=n_all, epipolar_share=share, launches=launches)
+        log(f"[describers] {method}: features {secs['features']:.2f} s ({n_feat.mean():.1f} a "
+            f"view, {n_feat.min()}..{n_feat.max()}), matches {t_match:.2f} s "
+            f"({rec['putative_matches']} putative in {len(putative)}/{n_pairs} pairs), filter -g "
+            f"f {t_filter:.2f} s: {len(kept)}/{n_pairs} pairs kept, {n_all} matches, "
+            f"{100 * share:.2f}% within 4 px of the ground-truth epipolar line; launches "
+            f"{launches}")
+        if method == "AKAZE_FLOAT":
+            if launches["two_nn"] != 1:
+                fail(f"[describers] AKAZE_FLOAT matching made {launches['two_nn']} K1 launches, "
+                     "not one")
+            if len(kept) < 0.9 * n_pairs:
+                fail(f"[describers] AKAZE_FLOAT kept only {len(kept)} of {n_pairs} pairs")
+            if share < 0.95:
+                fail(f"[describers] AKAZE_FLOAT: only {100 * share:.2f}% within 4 px")
+            rec["k1_at_shape"] = k1_at_akaze_float(two_nn, stack, counts, pairs)
+            rec["k1_at_shape"]["launches"] = launches["two_nn"]
+            out["k1_inputs"] = (stack, counts, pairs)
+        else:
+            if len(putative) < n_pairs:
+                fail(f"[describers] AKAZE_MLDB: {n_pairs - len(putative)} pairs without a "
+                     "putative match")
+            n_first = mldb_batch_check(stack, counts, pairs_np[:step], first_batch)
+            log(f"[describers] AKAZE_MLDB: the first batch of the loop ({n_first} pairs, padded "
+                "rows and masks as matched) equals a plain popcount 2-NN exactly: every Hamming "
+                "product, and each valid row's distance, match and mask; pairs kept and the "
+                "epipolar share printed, not gated")
+        out[method] = rec
+
+    # the warp check: one view warped on the card by the reference test's homography
+    img = read_image(os.path.join(scene.root_path, scene.view_filename[0]), grayscale=True)
+    H = warp_pair_h(size)
+    warped = image_ops.warp_homography(torch.as_tensor(img, device=dev), H).to(torch.float32)
+    f1, d1 = describe_image(img, "AKAZE_FLOAT", device=dev)
+    f2, d2 = describe_image(warped.cpu().numpy(), "AKAZE_FLOAT", device=dev)
+    res = matching.match_brute_force(torch.as_tensor(d1, device=dev),
+                                     torch.as_tensor(d2, device=dev), ratio=0.8)
+    ia = torch.nonzero(res.mask)[:, 0].cpu().numpy()
+    ib = res.idx_b.cpu().numpy()[ia]
+    proj = np.c_[f1[ia, :2], np.ones(len(ia))] @ H.T
+    err = np.linalg.norm(proj[:, :2] / proj[:, 2:3] - f2[ib, :2], axis=1)
+    agree = float((err < 3.0).mean()) if len(ia) else 0.0
+    out["warp"] = dict(matches=len(ia), agree=agree)
+    log(f"[describers] warp check (12 deg, scale 1.15, warped on the card): {len(ia)} AKAZE_FLOAT "
+        f"matches, {100 * agree:.1f}% within 3 px of the homography")
+    if len(ia) < 30 or agree < 0.7:
+        fail(f"[describers] warp check: {len(ia)} matches, {100 * agree:.1f}% on the warp")
+
+    # the other detectors and descriptors on one view, card against CPU
+    sift_f = load_feats(os.path.join(run["md"], "img_00.feat"))
+    det = {}
+    for d in (dev, "cpu"):
+        im = torch.as_tensor(img, device=d)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xy, sc, ok = fast.fast_detect(im, threshold=0.06, max_corners=2048)
+        lp = liop.liop_describe(im, sift_f[:, :2], sift_f[:, 2])
+        dp = dipole.dipole_describe(im, sift_f[:, :2], sift_f[:, 2], sift_f[:, 3])
+        torch.cuda.synchronize()
+        det[str(d)] = (time.perf_counter() - t, xy[ok].cpu().numpy(), sc[ok].cpu().numpy(),
+                       lp.cpu().numpy(), dp.cpu().numpy())
+    g, c = det[str(dev)], det["cpu"]
+    if not np.array_equal(g[1], c[1]) or np.abs(g[2] - c[2]).max() > 1e-6:
+        fail("[describers] FAST on the card differs from the CPU run")
+    liop_err, dip_err = float(np.abs(g[3] - c[3]).max()), float(np.abs(g[4] - c[4]).max())
+    if liop_err > 1e-5 or dip_err > 1e-5:
+        fail(f"[describers] LIOP / DIPOLE on the card differ from the CPU by {liop_err:.3g} / "
+             f"{dip_err:.3g}")
+    t = time.perf_counter()
+    n_mser = len(mser.detect_mser(img))
+    t_mser = time.perf_counter() - t
+    t = time.perf_counter()
+    n_tbmr = len(tbmr.detect_tbmr(img))
+    t_tbmr = time.perf_counter() - t
+    out["detectors"] = dict(fast_corners=len(g[1]), sift_keypoints=len(sift_f),
+                            liop_max_abs_err=liop_err, dipole_max_abs_err=dip_err,
+                            card_s=g[0], cpu_s=c[0], mser_regions=n_mser, mser_s=t_mser,
+                            tbmr_regions=n_tbmr, tbmr_s=t_tbmr)
+    log(f"[describers] one {size}^2 view: FAST {len(g[1])} corners equal to the CPU run; LIOP "
+        f"and DIPOLE at its {len(sift_f)} SIFT keypoints within {liop_err:.3g} / {dip_err:.3g} "
+        f"of the CPU run (FAST + LIOP + DIPOLE {g[0]:.3f} s on the card, {c[0]:.3f} s on the "
+        f"CPU); host code: MSER {n_mser} regions in {t_mser:.2f} s, TBMR {n_tbmr} regions in "
+        f"{t_tbmr:.2f} s")
+    return out
+
+
+def phase_spherical(kernel_mods, work, dev, n_views=100, width=5376, height=2688,
+                    n_obs=300_000):
+    """A SPHERICAL scene of n_views equirectangular views on the reference
+    ring (utils/synthetic.py spherical_room_dataset): filter -g a on its
+    putative matches, then sfm -s INCREMENTAL (K3 off) and sfm -s GLOBAL
+    (OMT_FUSED_SMATVEC=1), each with every kernel's count set to 0 just
+    before and read just after."""
+    import numpy as np
+
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.io.sfm_data import load_sfm_data
+    from openmvg_torch.sfm.eval_quality import evaluate_against_gt
+    from openmvg_torch.sfm.scene import Scene, rmse
+    from openmvg_torch.utils.logging import stage_times
+    from openmvg_torch.utils.synthetic import spherical_room_dataset
+
+    t = time.perf_counter()
+    root = os.path.join(work, "spherical")
+    sfm, md, R_gt, C_gt = spherical_room_dataset(root, n_views=n_views, width=width,
+                                                 height=height, n_obs=n_obs, device=dev)
+    put = os.path.join(md, "matches.putative.bin")
+    m = load_matches(put)
+    n_match = sum(len(x) for x in m.values())
+    log(f"[spherical] {n_views} SPHERICAL views of {width}x{height} on the ring of radius 2, "
+        f"each point seen by its 5-17 nearest views, {len(m)} pairs up to 3 ring steps apart, "
+        f"{n_match} putative matches (10% outliers, 0.5 px noise), written in "
+        f"{time.perf_counter() - t:.1f} s")
+    secs, _, launches = run_stages(kernel_mods, [("filter", [
+        "filter", "-i", sfm, "-m", put, "-o", os.path.join(md, "matches.f.bin"), "-g", "a"])])
+    kept = load_matches(os.path.join(md, "matches.f.bin"))
+    out = dict(pairs=len(m), putative_matches=n_match, filter_a_s=secs["filter"],
+               pairs_kept=len(kept), matches=sum(len(x) for x in kept.values()))
+    log(f"[spherical] filter -g a (angular essential, the reference's model for spherical "
+        f"pairs) {secs['filter']:.2f} s: {len(kept)}/{len(m)} pairs, {out['matches']} matches "
+        f"kept")
+    gt = Scene(view_filename=[f"v{i}.jpg" for i in range(n_views)],
+               view_pose=np.arange(n_views, dtype=np.int32),
+               view_intrinsic=np.zeros(n_views, np.int32), pose_valid=np.ones(n_views, bool),
+               pose_R=R_gt, pose_C=C_gt)
+    for engine, fused, need in (("INCREMENTAL", False, ("seg_sum",)),
+                                ("GLOBAL", True, ("seg_sum", "smatvec"))):
+        tag = f"[spherical {engine}]"
+        recon = os.path.join(root, engine.lower())
+        if fused:
+            os.environ["OMT_FUSED_SMATVEC"] = "1"
+        try:
+            secs, printed, launches = run_stages(kernel_mods, [(
+                "sfm", ["sfm", "-i", sfm, "-m", md, "-M", os.path.join(md, "matches.f.bin"),
+                        "-o", recon, "-s", engine])])
+        finally:
+            os.environ.pop("OMT_FUSED_SMATVEC", None)
+        text = printed["sfm"].getvalue()
+        done = SFM_DONE.search(text)
+        if done is None:
+            fail(f"{tag} the sfm stage printed no summary line")
+        polish = int(done.group(1))
+        scene = load_sfm_data(os.path.join(recon, "sfm_data.json"))
+        stats = evaluate_against_gt(scene, gt)
+        n_posed, err_px = int(scene.pose_valid.sum()), rmse(scene)
+        rec = dict(s=secs["sfm"], engine=dict(stage_times), launches=launches, poses=n_posed,
+                   landmarks=scene.n_landmarks, rmse_px=err_px,
+                   position_rmse=stats.get("position_rmse"), polish_steps=polish,
+                   triplets_ran="triplet translations" in text)
+        log(f"{tag} sfm {secs['sfm']:.2f} s: {n_posed}/{n_views} poses, {scene.n_landmarks} "
+            f"landmarks, rmse {err_px:.4f} px, position_rmse {stats.get('position_rmse')}, "
+            f"{polish} f64 polish steps, launches {launches}")
+        log(f"{tag} engine stage seconds: " + ", ".join(f"{k} {v:.3f}"
+                                                       for k, v in stage_times.items()))
+        if n_posed < math.ceil(0.98 * n_views):
+            fail(f"{tag} only {n_posed} of {n_views} poses reconstructed")
+        if not stats.get("ok") or not stats["position_rmse"] <= 0.004:
+            fail(f"{tag} position_rmse {stats.get('position_rmse')} above 0.004 (0.2% of the "
+                 "ring radius)")
+        if not err_px < 1.0:
+            fail(f"{tag} reprojection rmse {err_px:.4f} px is not below 1 px")
+        for name in need:
+            if launches[name] <= 0:
+                fail(f"{tag} the sfm stage did not launch {name}")
+        if not fused and launches["smatvec"] != 0:
+            fail(f"{tag} K3 launched, where it is off")
+        if polish != 0:
+            fail(f"{tag} the f64 polish accepted {polish} steps; it takes only one shared "
+                 "plain-PINHOLE intrinsic")
+        if rec["triplets_ran"]:
+            fail(f"{tag} the triplet stage ran on a SPHERICAL scene")
+        out[engine] = rec
+    return out
+
+
+def sphere_panorama(height, width, seed, dev):
+    """A seeded RGB equirectangular panorama (H, W, 3) uint8: a sum of
+    random sinusoids of the viewing direction, so that it is continuous
+    across the seam and at the poles."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k = torch.as_tensor(rng.normal(size=(3, 48, 3)) * rng.uniform(2, 60, (3, 48, 1)), device=dev)
+    ph = torch.as_tensor(rng.uniform(0, 2 * np.pi, (3, 48)), device=dev)
+    lat = (0.5 - (torch.arange(height, device=dev, dtype=torch.float64) + 0.5) / height) * math.pi
+    lon = ((torch.arange(width, device=dev, dtype=torch.float64) + 0.5) / width - 0.5) * 2 * math.pi
+    la, lo = torch.meshgrid(lat, lon, indexing="ij")
+    d = torch.stack([torch.cos(la) * torch.sin(lo), -torch.sin(la), torch.cos(la) * torch.cos(lo)],
+                    -1)
+    img = torch.stack([torch.sin(d @ k[c].T + ph[c]).mean(-1) for c in range(3)], -1)
+    return torch.clamp(127.5 + 400 * img, 0, 255).to(torch.uint8).cpu().numpy()
+
+
+def phase_cubify(kernel_mods, work, dev, height=2688, width=5376):
+    """One seeded panorama written as PNG through the CLI's cubify on the
+    card; its six faces against the port's CPU run of the same resampler,
+    within 1 gray level."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.io.image import read_image, write_image
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.ops.spherical import spherical_to_cubic
+    from openmvg_torch.utils.synthetic import _spherical_scene
+
+    root = os.path.join(work, "cubify")
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    pano = sphere_panorama(height, width, 5, dev)
+    write_image(os.path.join(root, "images", "pano.png"), pano)
+    sc = _spherical_scene(1, width, height)
+    sc.view_filename, sc.root_path = ["pano.png"], os.path.join(root, "images")
+    save_sfm_data(sc, os.path.join(root, "sfm_data.json"))
+    faces_dir = os.path.join(root, "faces")
+    secs, _, launches = run_stages(kernel_mods, [("cubify", ["cubify", "-i",
+                                                             os.path.join(root, "sfm_data.json"),
+                                                             "-o", faces_dir])])
+    t = time.perf_counter()
+    cpu = spherical_to_cubic(torch.as_tensor(pano))[0].to(torch.uint8).numpy()
+    t_cpu = time.perf_counter() - t
+    worst = 0
+    for f in range(6):
+        face = read_image(os.path.join(faces_dir, f"pano_face{f}.png"))
+        if face.shape != cpu[f].shape:
+            fail(f"[cubify] face {f} has shape {face.shape}, not {cpu[f].shape}")
+        worst = max(worst, int(np.abs(face.astype(int) - cpu[f].astype(int)).max()))
+    log(f"[cubify] one {width}x{height} RGB panorama: cubify {secs['cubify']:.2f} s on the card "
+        f"(PNG read and six {cpu.shape[1]}^2 PNG faces written), the CPU resampler "
+        f"{t_cpu:.2f} s; faces within {worst} gray level(s) of the CPU run")
+    if worst > 1:
+        fail(f"[cubify] a face differs from the CPU run by {worst} gray levels")
+    return dict(s=secs["cubify"], cpu_resample_s=t_cpu, max_gray_diff=worst,
+                face=int(cpu.shape[1]))
+
+
+def phase_vo(kernel_mods, work, dev, n_frames=60, size=1024, arc_step=0.014):
+    """n_frames rendered views of the textured sphere a small arc step apart
+    through the CLI's vo on the card: the share of frames that add a pose,
+    and the median angle between estimated and true step directions, both
+    in the first camera's frame."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.ops import fast
+    from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
+
+    focal = 1.2 * size
+    # the renderer's ring is centred on theta 0, where its look-at's up
+    # vector (nearly world z) meets the viewing direction and the image
+    # turns half a turn: the sequence takes the views just past it, on one
+    # side (KLT is not rotation invariant)
+    src, _, Rs, Cs, _ = render_textured_sphere_dataset(
+        os.path.join(work, "vo_render"), n_views=2 * n_frames + 1, size=size, focal=focal,
+        seed=2, arc_step=arc_step, device=dev)
+    views = list(range(n_frames + 1, 2 * n_frames + 1))
+    Rs, Cs = Rs[views], Cs[views]
+    imgdir = os.path.join(work, "vo", "frames")
+    os.makedirs(imgdir, exist_ok=True)
+    for f, v in enumerate(views):
+        os.replace(os.path.join(src, f"img_{v:02d}.png"),
+                   os.path.join(imgdir, f"frame_{f:03d}.png"))
+    a, b = (torch.as_tensor(read_image(os.path.join(imgdir, f"frame_{f:03d}.png"),
+                                       grayscale=True), device=dev) for f in (0, 1))
+    xy, _, ok = fast.fast_detect(a, threshold=0.06, max_corners=1024)
+    moved, ok2 = fast.klt_track(a, b, xy[ok])
+    flow = float((moved - xy[ok])[ok2].norm(dim=1).median())
+    traj_path = os.path.join(work, "vo", "trajectory.txt")
+    secs, printed, launches = run_stages(kernel_mods, [("vo", ["vo", "-i", imgdir, "-o",
+                                                               traj_path, "-f", str(focal)])])
+    counts = [1] + [int(x) for x in re.findall(r": (\d+) poses", printed["vo"].getvalue())]
+    traj = np.loadtxt(traj_path, ndmin=2)
+    added = [f for f in range(1, n_frames) if counts[f] > counts[f - 1]]
+    share = len(added) / (n_frames - 1)
+    angles = []
+    for k, f in enumerate(added):
+        if f - 1 in added or f == 1:
+            est = traj[k + 1] - traj[k]
+            true = Rs[0] @ (Cs[f] - Cs[f - 1])
+            c = est @ true / (np.linalg.norm(est) * np.linalg.norm(true))
+            angles.append(math.degrees(math.acos(max(-1.0, min(1.0, c)))))
+    med = float(np.median(angles)) if angles else float("inf")
+    log(f"[vo] {n_frames} frames of {size}^2, arc step {arc_step} rad (median KLT motion "
+        f"{flow:.2f} px a frame between the first two): vo {secs['vo']:.2f} s, "
+        f"{len(added)}/{n_frames - 1} frames added a pose, median step direction error "
+        f"{med:.2f} deg over {len(angles)} steps (max {max(angles, default=float('nan')):.2f})")
+    if share < 0.9:
+        fail(f"[vo] only {len(added)} of {n_frames - 1} frames added a pose")
+    if not med < 10.0:
+        fail(f"[vo] median step direction error {med:.2f} deg, not under 10")
+    return dict(s=secs["vo"], frames=n_frames, frames_with_pose=len(added) + 1,
+                median_step_angle_deg=med, max_step_angle_deg=max(angles), klt_motion_px=flow)
+
+
 def final_problem(scene):
     """The final bundle adjustment's problem, rebuilt from the scene it
     wrote (the polish after it changes no observation)."""
@@ -1776,7 +2326,12 @@ def main():
             f"{c3_views * (c3_views - 1) // 2} exhaustive pairs (the realistic scale is "
             "100 views of 1024^2)")
         c3run = phase_camera3(mods, c3_views, args.size, os.path.join(work, "camera3"))
-    meas = phase_measure(two_nn, run, dev, mhz)
+        drun = phase_describers(mods, run, dev)
+        curun = phase_cubify(mods, work, dev)
+        vorun = phase_vo(mods, work, dev)
+        sprun = phase_spherical(mods, work, dev)
+    meas = phase_measure(two_nn, run, dev, mhz, drun.pop("k1_inputs"))
+    drun["AKAZE_FLOAT"]["k1_at_shape"]["device_ms"] = meas["akaze_float_device_ms"]
     m2 = phase_measure_k2(seg_sum, final_problem(srun["scene"]))
     m3 = phase_measure_k3(smatvec, seg_sum, final_problem(grun["scene"]))
 
@@ -1801,6 +2356,7 @@ def main():
                              "bound_ms": kres["headline_bound_ms"]},
         **new_paths("two_nn"), "launches_matchers": mrun["launches_two_nn"],
         "known_poses_shape": mrun["known_poses"]["k1_at_shape"],
+        "akaze_float_shape": drun["AKAZE_FLOAT"]["k1_at_shape"],
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
@@ -1813,6 +2369,8 @@ def main():
         "launches_global": grun["launches"]["seg_sum"], **new_paths("seg_sum"),
         "launches_vlad": mrun["launches_seg_sum_vlad"],
         "vlad_lloyd_shape": mrun["vlad"]["k2_lloyd_at_shape"],
+        "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["seg_sum"],
+        "launches_spherical_global": sprun["GLOBAL"]["launches"]["seg_sum"],
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
@@ -1826,6 +2384,8 @@ def main():
         "shape": {k: m3[k] for k in ("O", "R", "L", "M", "P", "I")},
         "cg_iterations_one_solve": {"unfused": m3["cg_unfused"], "fused": m3["cg_fused"]},
         **new_paths("smatvec"),
+        "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["smatvec"],
+        "launches_spherical_global": sprun["GLOBAL"]["launches"]["smatvec"],
     }], "pipeline_s": run["secs"], "sfm_s": srun["secs"], "engine_s": srun["engine"],
         "polish_steps": srun["polish_steps"], "eval": evals(srun),
         "sfm2_s": v2run["secs"], "sfm2_engine_s": v2run["engine"],
@@ -1839,7 +2399,10 @@ def main():
         "camera3_pipeline_s": c3run["pipeline_s"], "camera3_engine_s": c3run["engine"],
         "camera3_polish_steps": c3run["polish_steps"], "camera3_k123": c3run["k123"],
         "camera3_peak_device_gib": c3run["peak_device_gib"], "camera3_eval": evals(c3run),
-        "matchers": {k: v for k, v in mrun.items() if isinstance(v, dict)}}
+        "matchers": {k: v for k, v in mrun.items() if isinstance(v, dict)},
+        "describers": {m: {k: v for k, v in r.items() if k != "k1_at_shape"}
+                       for m, r in drun.items()},
+        "spherical": sprun, "cubify": curun, "vo": vorun}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

@@ -5,24 +5,28 @@ counterpart there:
 
   core/      index types and sentinels
   csrc/      hand-written CUDA kernels (K1 two_nn.cu, K2 seg_sum.cu, K3
-             smatvec.cu) and the host C++ of the f64 polish (native.cpp),
-             built at first use
+             smatvec.cu) and the host C++ of the f64 polish and of TBMR's
+             component tree (native.cpp), built at first use
   geometry/  SO(3), poses, similarity alignment, geodesy
   io/        openMVG file formats (sfm_data.json, .feat/.desc, matches.*.bin,
              PNG, PLY, Strecha ground truth) and the converter from the
              reference package's records
   models/    the six camera models
-  ops/       SIFT, descriptor matching (K1), fundamental / essential /
-             resection solvers, triangulation, AC-RANSAC, small dense
+  ops/       SIFT, AKAZE, FAST / KLT, MSER, TBMR, LIOP, DIPOLE, the image
+             toolbox, equirectangular resampling, descriptor matching (K1),
+             fundamental / essential / resection solvers, triangulation,
+             AC-RANSAC, small dense
              linear algebra, the segment sum (K2), the fused S-matvec (K3),
              rotation and translation averaging, triplet translations
   sfm/       the Scene record, describers, robust estimation, geometric
              filter, tracks, bundle adjustment, f64 polish, filters, the
-             incremental and global engines, colorisation, evaluation
+             incremental and global engines, colorisation, evaluation,
+             monocular VO
   utils/     pair graphs, device selection, synthetic datasets, build,
              stage timers, deadline
   cli.py     init / features / pairs / matches / filter / sfm / color /
-             eval / pipeline
+             eval / pipeline, and the other commands listed in its
+             docstring (cubify, vo, ...)
 
 It imports torch, numpy and scipy; never jax and never openmvg_tpu.
 """

@@ -3,7 +3,7 @@ subcommands (counterpart: openmvg_tpu/cli.py, the stages of the
 one-command pipeline and eval).
 
   init      main_SfMInit_ImageListing.cpp  (EXIF -> sfm_data.json)
-  features  main_ComputeFeatures.cpp       (SIFT, presets)
+  features  main_ComputeFeatures.cpp       (SIFT, presets; AKAZE_FLOAT, AKAZE_MLDB)
   pairs     main_PairGenerator.cpp         (EXHAUSTIVE | CONTIGUOUS)
   matches   main_ComputeMatches.cpp        (brute-force L2 on K1, cascade
                                             hashing, kd-tree; ratio 0.8)
@@ -20,6 +20,8 @@ one-command pipeline and eval).
   known-poses main_ComputeStructureFromKnownPoses.cpp
   vlad      main_ComputeVLAD.cpp           (retrieval pair list)
   kvld-filter matching/kvld                (K-VLD match verification)
+  cubify    main_openMVGSpherical2Cubic.cpp (equirectangular -> 6 cube faces)
+  vo        software/VO                    (FAST + KLT monocular odometry)
   pipeline  SfM_SequentialPipeline.py /    (init .. color in one command; GLOBAL
             SfM_GlobalPipeline.py           filters with e)
 
@@ -121,26 +123,35 @@ def cmd_init(args):
 
 
 def _write_image_describer_json(args):
-    """image_describer.json (main_ComputeFeatures.cpp:168-230, cereal JSON)."""
-    preset_peak = {"NORMAL": 0.04, "HIGH": 0.01, "ULTRA": 0.01}
+    """image_describer.json (main_ComputeFeatures.cpp:168-230, cereal JSON):
+    the describer and regions type, so that later tools recover it."""
     method = args.describerMethod.upper()
-    params = {"first_octave": -1 if args.describerPreset.upper() == "ULTRA" else 0,
-              "num_octaves": 6, "num_scales": 3, "edge_threshold": 10.0,
-              "peak_threshold": preset_peak.get(args.describerPreset.upper(), 0.04),
-              "root_sift": True}
+    preset_peak = {"NORMAL": 0.04, "HIGH": 0.01, "ULTRA": 0.01}
+    if method.startswith("AKAZE"):
+        dname = ("AKAZE_Image_describer_SURF" if "FLOAT" in method
+                 else "AKAZE_Image_describer_MLDB")
+        rname = "AKAZE_Float_Regions" if "FLOAT" in method else "AKAZE_Binary_Regions"
+        params = {"options": {"iNbOctave": 4, "iNbSlicePerOctave": 4,
+                              "fThreshold": 0.0016, "fDesc_factor": 1.0}}
+    else:
+        dname = ("SIFT_Anatomy_Image_describer" if method == "SIFT_ANATOMY"
+                 else "SIFT_Image_describer")
+        rname = "SIFT_Regions"
+        params = {"first_octave": -1 if args.describerPreset.upper() == "ULTRA" else 0,
+                  "num_octaves": 6, "num_scales": 3, "edge_threshold": 10.0,
+                  "peak_threshold": preset_peak.get(args.describerPreset.upper(), 0.04),
+                  "root_sift": True}
     doc = {
         "image_describer": {
             "polymorphic_id": 2147483649,
-            "polymorphic_name": ("SIFT_Anatomy_Image_describer"
-                                 if method == "SIFT_ANATOMY"
-                                 else "SIFT_Image_describer"),
+            "polymorphic_name": dname,
             "ptr_wrapper": {"id": 2147483649,
                             "data": {"params": params,
                                      "bOrientation": not args.upright}},
         },
         "regions_type": {
             "polymorphic_id": 2147483650,
-            "polymorphic_name": "SIFT_Regions",
+            "polymorphic_name": rname,
             "ptr_wrapper": {"id": 2147483650, "data": {"value0": 0}},
         },
     }
@@ -494,6 +505,55 @@ def cmd_kvld_filter(args):
     return 0
 
 
+def cmd_cubify(args):
+    """main_openMVGSpherical2Cubic: every equirectangular view of the scene
+    -> six cubemap pinhole faces, <stem>_face<k>.png, resampled on the
+    device (the sampled values truncated to uint8, as the reference
+    writes them)."""
+    from openmvg_torch.io.image import read_image, write_image
+    from openmvg_torch.ops.spherical import spherical_to_cubic
+
+    scene = _load_scene(args.input_file)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for name in scene.view_filename:
+        pano = read_image(os.path.join(scene.root_path, name))
+        faces, _, focal = spherical_to_cubic(torch.as_tensor(pano, device=args.device))
+        faces = faces.to(torch.uint8).cpu().numpy()
+        stem = os.path.splitext(os.path.basename(name))[0]
+        for fidx in range(6):
+            write_image(os.path.join(args.output_dir, f"{stem}_face{fidx}.png"), faces[fidx])
+        print(f"{name}: 6 faces (focal={focal})")
+    return 0
+
+
+def cmd_vo(args):
+    """Monocular visual odometry over an image sequence (software/VO: FAST
+    + KLT tracking on the device, 5-point relative pose); writes the
+    up-to-scale camera trajectory as text, one 'x y z' a frame."""
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.sfm.vo import MonocularVO
+
+    exts = (".jpg", ".jpeg", ".png", ".tif", ".tiff")
+    files = sorted(f for f in os.listdir(args.imageDirectory) if f.lower().endswith(exts))
+    if not files:
+        print("no images found", file=sys.stderr)
+        return 1
+    first = read_image(os.path.join(args.imageDirectory, files[0]), grayscale=True)
+    h, w = first.shape
+    f = args.focal or 1.2 * max(w, h)
+    K = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1]])
+    vo = MonocularVO(K, fast_threshold=args.threshold, device=args.device)
+    vo.process(first)
+    for name in files[1:]:
+        vo.process(read_image(os.path.join(args.imageDirectory, name), grayscale=True))
+        print(f"  {name}: {len(vo.trajectory)} poses")
+    with open(args.output_file, "w") as fo:
+        for C in vo.trajectory:
+            fo.write(f"{C[0]} {C[1]} {C[2]}\n")
+    print(f"trajectory of {len(vo.trajectory)} frames -> {args.output_file}")
+    return 0
+
+
 def cmd_pipeline(args):
     """init -> features -> pairs -> matches -> filter -> sfm -> color in one
     command (SfM_SequentialPipeline.py, SfM_GlobalPipeline.py), each stage on
@@ -649,6 +709,16 @@ def build_parser():
     p.add_argument("-o", "--output_file", required=True)
     p.add_argument("-d", "--matchdir", default=None)
     p.add_argument("-K", type=int, default=3)
+
+    p = stage("cubify", cmd_cubify)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_dir", required=True)
+
+    p = stage("vo", cmd_vo)
+    p.add_argument("-i", "--imageDirectory", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-f", "--focal", type=float, default=0.0)
+    p.add_argument("-t", "--threshold", type=float, default=0.06)
 
     p = stage("pipeline", cmd_pipeline)
     p.add_argument("-i", "--imageDirectory", required=True)

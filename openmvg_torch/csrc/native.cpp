@@ -1,4 +1,5 @@
-// Host library of the port: the float64 polish of a reconstruction.
+// Host library of the port: the float64 polish of a reconstruction, and
+// the TBMR detector's component tree.
 //
 // One Levenberg-Marquardt step of pinhole bundle adjustment with the
 // shared intrinsics [f, cx, cy] as three extra global unknowns, copied
@@ -9,6 +10,10 @@
 // block-Jacobi preconditioned CG on the reduced camera system,
 // back-substitution, accept or reject.  Double precision, OpenMP over
 // observations and blocks.
+//
+// omt_tbmr is copied from the same file: the max-tree of TBMR, a
+// sequential union-find over brightness-sorted pixels (openmvg_torch/ops/
+// tbmr.py).
 //
 // Build: g++ -O3 -fopenmp -shared -fPIC -std=c++17 (openmvg_torch/sfm/
 // polish.py builds it into openmvg_torch/_build/ at first use), loaded
@@ -438,6 +443,159 @@ int64_t omt_ba_lm_step_k(const int32_t* obs_pose, const int32_t* obs_point,
     return 1;
   }
   return 0;
+}
+
+// TBMR (tree-based Morse regions): exact max-tree via union-find over
+// brightness-sorted pixels with incremental region moments, canonization,
+// then selection of the largest topology-preserving region per critical
+// branch (features/tbmr/tbmr.cpp semantics, own implementation of
+// Xu/Monasse/Geraud/Najman, PAMI 2014).
+//
+// img: h*w uint8. invert!=0 detects dark regions (min-tree). Writes up to
+// max_out rows of (x, y, a, b, c, area) into `out`; returns the count.
+int64_t omt_tbmr(const uint8_t* img, int64_t w, int64_t h, int32_t invert,
+                 int64_t min_size, double max_rel_size, double* out,
+                 int64_t max_out) {
+  const int64_t n = w * h;
+  if (n == 0) return 0;
+
+  // counting sort: S = pixel ids ordered so that the *tree root end*
+  // (darkest for max-tree) comes first; we then scan S backwards.
+  std::vector<int64_t> hist(257, 0);
+  std::vector<uint8_t> key(n);
+  for (int64_t i = 0; i < n; ++i) {
+    key[i] = invert ? (uint8_t)(255 - img[i]) : img[i];
+    ++hist[key[i] + 1];
+  }
+  for (int k = 0; k < 256; ++k) hist[k + 1] += hist[k];
+  std::vector<int64_t> S(n);
+  {
+    std::vector<int64_t> cur(hist.begin(), hist.begin() + 256);
+    for (int64_t i = 0; i < n; ++i) S[cur[key[i]]++] = i;
+  }
+
+  std::vector<int64_t> parent(n), zpar(n), comp_root(n);
+  std::vector<int32_t> rank_(n, 0);
+  std::vector<uint8_t> seen(n, 0);
+  // region attributes, accumulated at the current component root pixel
+  std::vector<int64_t> area(n, 0);
+  std::vector<double> sx(n, 0), sy(n, 0), sxx(n, 0), syy(n, 0), sxy(n, 0);
+
+  // path-halving find on zpar
+  auto zfind = [&](int64_t p) {
+    while (zpar[p] != p) {
+      zpar[p] = zpar[zpar[p]];
+      p = zpar[p];
+    }
+    return p;
+  };
+
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t p = S[i];
+    parent[p] = p;
+    zpar[p] = p;
+    comp_root[p] = p;
+    seen[p] = 1;
+    const double px = (double)(p % w), py = (double)(p / w);
+    area[p] = 1;
+    sx[p] = px; sy[p] = py;
+    sxx[p] = px * px; syy[p] = py * py; sxy[p] = px * py;
+
+    int64_t x = p;
+    const int64_t col = p % w;
+    const int64_t nb[4] = {p - w, p + w, col > 0 ? p - 1 : -1,
+                           col + 1 < w ? p + 1 : -1};
+    for (int k = 0; k < 4; ++k) {
+      const int64_t q = nb[k];
+      if (q < 0 || q >= n || !seen[q]) continue;
+      const int64_t r = zfind(q);
+      if (r == x) continue;
+      parent[comp_root[r]] = p;
+      area[p] += area[comp_root[r]];
+      sx[p] += sx[comp_root[r]];
+      sy[p] += sy[comp_root[r]];
+      sxx[p] += sxx[comp_root[r]];
+      syy[p] += syy[comp_root[r]];
+      sxy[p] += sxy[comp_root[r]];
+      if (rank_[x] < rank_[r]) {
+        zpar[x] = r;
+        comp_root[r] = p;
+        x = r;
+      } else if (rank_[r] < rank_[x]) {
+        zpar[r] = x;
+      } else {
+        zpar[r] = x;
+        ++rank_[x];
+      }
+    }
+  }
+
+  // canonization: level-equal parents collapse to their canonical element
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t p = S[i];
+    const int64_t q = parent[p];
+    if (img[parent[q]] == img[q]) parent[p] = parent[q];
+  }
+
+  // canonical nodes + per-parent counts of large-enough sons
+  std::vector<int32_t> num_sons(n, 0);
+  std::vector<int64_t> nodes;
+  nodes.reserve(n / 4);
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int64_t p = S[i];
+    if (parent[p] == p || img[p] != img[parent[p]]) {
+      nodes.push_back(p);
+      if (area[p] >= min_size) ++num_sons[parent[p]];
+    }
+  }
+
+  std::vector<uint8_t> is_parent_of_leaf(n, 0);
+  for (const int64_t p : nodes)
+    if (num_sons[p] == 0 && num_sons[parent[p]] == 1)
+      is_parent_of_leaf[parent[p]] = 1;
+
+  const int64_t max_area = (int64_t)(max_rel_size * (double)n);
+  std::vector<uint8_t> visited(n, 0);
+  int64_t count = 0;
+  for (const int64_t p : nodes) {
+    if (num_sons[p] != 1 || visited[p] || area[p] > max_area) continue;
+    int64_t pt = p, po = p;
+    int64_t ancestors = 0;
+    while (num_sons[pt] == 1 && area[pt] <= max_area) {
+      visited[pt] = 1;
+      ++ancestors;
+      po = pt;
+      pt = parent[pt];
+    }
+    if (is_parent_of_leaf[p] && ancestors <= 1) continue;
+
+    const double A = (double)area[po];
+    const double cx = sx[po] / A, cy = sy[po] / A;
+    const double i20 = sxx[po] - A * cx * cx;
+    const double i02 = syy[po] - A * cy * cy;
+    const double i11 = sxy[po] - A * cx * cy;
+    const double det = i20 * i02 - i11 * i11;
+    if (det == 0.0) continue;
+    const double a = i02 / det * (A - 1.0) / 4.0;
+    const double b = -i11 / det * (A - 1.0) / 4.0;
+    const double c = i20 / det * (A - 1.0) / 4.0;
+    // minor semi-axis (feature.cpp:104-107): reject thin/tiny ellipses
+    const double disc = a * a + c * c + 4.0 * b * b - 2.0 * a * c;
+    const double e_big = (a + c + std::sqrt(disc > 0 ? disc : 0)) / 2.0;
+    if (e_big <= 0) continue;
+    const double l_min = 1.0 / std::sqrt(e_big);
+    if (l_min < 1.5) continue;
+    if (count < max_out) {
+      out[count * 6 + 0] = cx;
+      out[count * 6 + 1] = cy;
+      out[count * 6 + 2] = a;
+      out[count * 6 + 3] = b;
+      out[count * 6 + 4] = c;
+      out[count * 6 + 5] = A;
+      ++count;
+    }
+  }
+  return count;
 }
 
 }  // extern "C"

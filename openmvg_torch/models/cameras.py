@@ -251,8 +251,15 @@ def bearing(kind, params, width, height, pix):
 
 
 def residual(kind, params, width, height, Xc, observed):
-    """project(Xc) - observed, (..., 2) (Camera_Intrinsics.hpp:208)."""
-    return project_cam(kind, params, width, height, Xc) - observed
+    """project(Xc) - observed, (..., 2) (Camera_Intrinsics.hpp:208).  A
+    SPHERICAL view's x difference is taken modulo one turn, max(w, h)
+    pixels, into [-turn / 2, turn / 2]: a point on the panorama's seam is
+    then a few pixels off, not a whole image width (openMVG and the
+    reference subtract the pixels as they are)."""
+    d = project_cam(kind, params, width, height, Xc) - observed
+    turn = torch.maximum(torch.as_tensor(width), torch.as_tensor(height))
+    dx = d[..., 0] - turn * torch.round(d[..., 0] / turn)
+    return torch.where(_is(kind, SPHERICAL), torch.stack([dx, d[..., 1]], -1), d)
 
 
 def image_plane_to_camera_plane_error(kind, params, width, height, value):

@@ -236,28 +236,29 @@ def match_cascade(desc_a, desc_b, proj, mean, valid_a=None, valid_b=None, ratio=
 # ---------------------------------------------------------------------------
 
 def _unpack_bits_pm1(packed):
-    """(N, B) uint8 -> (N, 8B) +-1 float32 sign codes, low bit first."""
+    """(..., N, B) uint8 -> (..., N, 8B) +-1 float32 sign codes, low bit first."""
     weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
                            device=packed.device)
     bits = (packed[..., :, None] & weights) > 0
-    return torch.where(bits, 1.0, -1.0).to(torch.float32).reshape(packed.shape[0], -1)
+    return torch.where(bits, 1.0, -1.0).to(torch.float32).reshape(packed.shape[:-1] + (-1,))
 
 
 def match_brute_force_hamming(desc_a, desc_b, valid_a=None, valid_b=None, ratio=0.8):
     """Brute-force Hamming 2-NN of packed binary descriptors (metric_hamming.hpp):
     hamming = (bits - s_a . s_b) / 2 from one float32 product of sign codes,
     exact below 2^24 bits.  Hamming distances are linear, so the ratio
-    applies to them directly (d1 < ratio * d2)."""
+    applies to them directly (d1 < ratio * d2).  desc (..., N|M, B): any
+    leading dimensions are a batch of pairs."""
     sa = _unpack_bits_pm1(desc_a)
     sb = _unpack_bits_pm1(desc_b)
-    ham = (sa.shape[1] - sa @ sb.T) * 0.5
+    ham = (sa.shape[-1] - sa @ sb.transpose(-1, -2)) * 0.5
     d1, d2, idx1 = two_nn(ham, valid_b)
     keep = d1 < ratio * d2
     if valid_a is not None:
         keep = keep & valid_a
-    keep = dedupe_right(idx1, keep, d1, desc_b.shape[0])
-    return MatchResult(idx_a=torch.arange(desc_a.shape[0], device=desc_a.device),
-                       idx_b=idx1, mask=keep, dist=d1)
+    keep = dedupe_right(idx1, keep, d1, desc_b.shape[-2])
+    idx_a = torch.arange(desc_a.shape[-2], device=desc_a.device).expand(keep.shape)
+    return MatchResult(idx_a=idx_a, idx_b=idx1, mask=keep, dist=d1)
 
 
 def match_kdtree(desc_a, desc_b, ratio=0.8):

@@ -64,13 +64,15 @@ def _gauss_kernel1d(sigma, radius):
 
 
 def _blur(img, sigma):
-    """Separable Gaussian blur with edge padding; img (B, H, W)."""
+    """Separable Gaussian blur with edge padding; img (..., H, W), the
+    float32 kernel taken in img's dtype."""
     radius = max(1, int(np.ceil(4.0 * sigma)))
-    k = torch.as_tensor(_gauss_kernel1d(sigma, radius), device=img.device)
-    x = F.pad(img[:, None], (radius, radius, radius, radius), mode="replicate")
+    k = torch.as_tensor(_gauss_kernel1d(sigma, radius), device=img.device).to(img.dtype)
+    x = F.pad(img.reshape((-1, 1) + img.shape[-2:]), (radius, radius, radius, radius),
+              mode="replicate")
     x = F.conv2d(x, k.view(1, 1, 1, -1))
     x = F.conv2d(x, k.view(1, 1, -1, 1))
-    return x[:, 0]
+    return x.reshape(img.shape)
 
 
 def _blur_levels(img, sigmas):

@@ -143,7 +143,11 @@ def triangulate_nview(Rs, ts, bearings, weights=None):
 
     Rs (..., V, 3, 3), ts (..., V, 3), bearings (..., V, 3); weights
     (..., V) mask views.  Returns (X (..., 3), ok) with ok = positive
-    depth in every weighted view."""
+    depth along the bearing in every weighted view, (R_i X + t_i) . b_i > 0
+    (CheiralityTest of sfm_data_triangulation.cpp).  The reference tests
+    the camera z instead, which refuses every point behind a SPHERICAL
+    camera's optical axis; for a pinhole view whose reprojection is within
+    any threshold the two agree."""
     from openmvg_torch.geometry.so3 import skew
 
     if weights is None:
@@ -152,6 +156,6 @@ def triangulate_nview(Rs, ts, bearings, weights=None):
     A = (skew(bearings) @ P) * weights[..., None, None]
     A = A.reshape(A.shape[:-3] + (-1, 4))
     X = _dehomogenize(linalg.smallest_eigvec(A.transpose(-1, -2) @ A))
-    depth = torch.einsum("...vij,...j->...vi", Rs, X)[..., 2] + ts[..., 2]
+    depth = ((torch.einsum("...vij,...j->...vi", Rs, X) + ts) * bearings).sum(-1)
     ok = ((depth > 0) | (weights <= 0)).all(-1)
     return X, ok

@@ -2,7 +2,9 @@
 
 Reference parity: features/image_describer.hpp Describe and the method /
 preset enums of main_ComputeFeatures.cpp:77-86.  SIFT and SIFT_ANATOMY map
-to ops/sift.py; AKAZE comes with a later slice of the port.
+to ops/sift.py, one batch of same-shape images a call; AKAZE_FLOAT and
+AKAZE_MLDB to ops/akaze.py, image by image (the preset does not apply), as
+the reference's batch function runs them.
 """
 
 import numpy as np
@@ -34,11 +36,7 @@ def make_config(method="SIFT", preset="NORMAL", max_features=8192,
 
 def _check_method(method):
     method = method.upper()
-    if method.startswith("AKAZE"):
-        raise NotImplementedError(
-            f"describer {method} is not ported yet: AKAZE comes with the "
-            "describers slice of the port (ROADMAP queue 1, item 7)")
-    if method not in ("SIFT", "SIFT_ANATOMY"):
+    if method not in ("SIFT", "SIFT_ANATOMY") and not method.startswith("AKAZE"):
         raise ValueError(f"unknown describer method {method}")
     return method
 
@@ -46,9 +44,16 @@ def _check_method(method):
 def describe_images_batch(gray_images, method="SIFT", preset="NORMAL",
                           max_features=8192, upright=False, device="cuda"):
     """List of same-shape (H, W) float [0, 1] images -> list of (feats
-    (N, 4) [x y scale ori] float32, descs (N, 128) uint8), one SIFT batch on
-    `device`."""
+    (N, 4) [x y scale ori] float32, descs), on `device`: SIFT (N, 128)
+    uint8 in one batch; AKAZE_FLOAT (N, 64) float32 and AKAZE_MLDB (N, 60)
+    uint8 image by image."""
     method = _check_method(method)
+    if method.startswith("AKAZE"):
+        from openmvg_torch.ops import akaze
+
+        return [akaze.extract_to_numpy(im, method=method, max_features=max_features,
+                                       upright=upright, device=device)
+                for im in gray_images]
     cfg = make_config(method, preset, max_features, gray_images[0].shape)
     imgs = torch.as_tensor(np.stack(gray_images).astype(np.float32),
                            device=device)
@@ -59,6 +64,6 @@ def describe_images_batch(gray_images, method="SIFT", preset="NORMAL",
 
 def describe_image(gray_image, method="SIFT", preset="NORMAL",
                    max_features=8192, upright=False, device="cuda"):
-    """(H, W) float [0, 1] -> (feats (N, 4), descs (N, 128) uint8)."""
+    """(H, W) float [0, 1] -> (feats (N, 4), descs) as describe_images_batch."""
     return describe_images_batch([gray_image], method, preset, max_features,
                                  upright, device)[0]

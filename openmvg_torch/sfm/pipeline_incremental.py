@@ -674,10 +674,16 @@ def _grow_structure(scene, index, posed, landmark_of_track, cfg, device):
         iid = scene.view_intrinsic[vi]
         Xc = np.einsum("nij,nj->ni", scene.pose_R[pid], scene.X[lm[missing]] - scene.pose_C[pid])
         cams = scene.cameras
-        proj = hostmath.project_cam_np(np.asarray(cams.kind)[iid], np.asarray(cams.params)[iid],
-                                       np.asarray(cams.width)[iid], np.asarray(cams.height)[iid],
-                                       Xc)
-        d = np.linalg.norm(proj - index.obs_xy[missing], axis=1)
-        okm = missing[(d <= cfg.max_residual_px) & (Xc[:, 2] > 0)]
+        r = hostmath.residual_np(np.asarray(cams.kind)[iid], np.asarray(cams.params)[iid],
+                                 np.asarray(cams.width)[iid], np.asarray(cams.height)[iid], Xc,
+                                 index.obs_xy[missing])
+        d = np.linalg.norm(r, axis=1)
+        # cheirality: the camera z for a pinhole view; an equirectangular
+        # view sees every direction and its residual gate already holds the
+        # point on the observed ray (the reference tests the camera z here
+        # too, which refuses every observation behind a SPHERICAL camera's
+        # optical axis)
+        front = (Xc[:, 2] > 0) | (np.asarray(cams.kind)[iid] == cm.SPHERICAL)
+        okm = missing[(d <= cfg.max_residual_px) & front]
         if len(okm):
             _append_observations(scene, okm, index, landmark_of_track)

@@ -15,33 +15,12 @@ It applies to a scene with one shared plain-PINHOLE intrinsic and returns
 raises instead of skipping the polish.
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
 from openmvg_torch.models import cameras as cm
 from openmvg_torch.utils import deadline, hostmath
-from openmvg_torch.utils.build import GXX_FLAGS, build_shared, gxx
-
-_lib = None
-
-
-def build():
-    """Compile csrc/native.cpp (once per source/flags version) and load it."""
-    global _lib
-    if _lib is None:
-        lib, _ = build_shared("native.cpp", gxx(), GXX_FLAGS)
-        p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-        p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-        i64 = ctypes.c_int64
-        lib.omt_ba_lm_step_k.restype = i64
-        lib.omt_ba_lm_step_k.argtypes = [
-            p_i32, p_i32, p_f64, p_f64, p_f64, p_f64, p_f64, ctypes.c_int32,
-            i64, i64, i64, ctypes.c_double, ctypes.c_int32, ctypes.c_double,
-            ctypes.c_int32, p_f64]
-        _lib = lib
-    return _lib
+from openmvg_torch.utils.build import host_library as build
 
 
 def ba_lm_step_k(obs_pose, obs_point, obs_x, rotvec, t, X, kparams, refine_k=True,

@@ -143,10 +143,10 @@ def reprojection_residuals(scene: Scene):
     Xc = np.einsum("nij,nj->ni", R, scene.X[info["landmark_id"]] - C)
     cams = scene.cameras
     iid = info["intr_id"]
-    proj = hostmath.project_cam_np(np.asarray(cams.kind)[iid], np.asarray(cams.params)[iid],
-                                   np.asarray(cams.width)[iid], np.asarray(cams.height)[iid],
-                                   Xc)
-    return proj - info["x"], info
+    r = hostmath.residual_np(np.asarray(cams.kind)[iid], np.asarray(cams.params)[iid],
+                             np.asarray(cams.width)[iid], np.asarray(cams.height)[iid], Xc,
+                             info["x"])
+    return r, info
 
 
 def rmse(scene: Scene):

@@ -23,7 +23,7 @@ def _triangulate_batch(Rs, ts, bearings, weights, kind, params, wi, hi, x_obs,
     """(T, K, ...) padded track observations -> (X (T, 3), ok (T,))."""
     X, cheir = triangulate_nview(Rs, ts, bearings, weights=weights)
     Xc = torch.einsum("tkij,tj->tki", Rs, X) + ts
-    d = cm.project_cam(kind, params, wi, hi, Xc) - x_obs
+    d = cm.residual(kind, params, wi, hi, Xc, x_obs)
     res_ok = (((d * d).sum(-1) <= max_resid_sq) | (weights <= 0)).all(-1)
     rays = torch.einsum("tkji,tkj->tki", Rs, bearings)
     rays = rays / torch.clamp(torch.linalg.vector_norm(rays, dim=-1, keepdim=True), min=1e-30)

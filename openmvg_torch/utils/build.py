@@ -14,6 +14,8 @@ import shutil
 import subprocess
 import tempfile
 
+import numpy as np
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -82,3 +84,29 @@ def build_shared(source, compiler, flags):
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(so), log
+
+
+_host = None
+
+
+def host_library():
+    """csrc/native.cpp (the f64 polish's LM step, the TBMR component tree)
+    built with g++ and OpenMP once per source and flags version, loaded,
+    and its entry points declared."""
+    global _host
+    if _host is None:
+        lib, _ = build_shared("native.cpp", gxx(), GXX_FLAGS)
+        p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        i64 = ctypes.c_int64
+        lib.omt_ba_lm_step_k.restype = i64
+        lib.omt_ba_lm_step_k.argtypes = [
+            p_i32, p_i32, p_f64, p_f64, p_f64, p_f64, p_f64, ctypes.c_int32,
+            i64, i64, i64, ctypes.c_double, ctypes.c_int32, ctypes.c_double,
+            ctypes.c_int32, p_f64]
+        lib.omt_tbmr.restype = i64
+        lib.omt_tbmr.argtypes = [p_u8, i64, i64, ctypes.c_int32, i64, ctypes.c_double, p_f64,
+                                 i64]
+        _host = lib
+    return _host

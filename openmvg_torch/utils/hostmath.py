@@ -89,3 +89,12 @@ def project_cam_np(kind, params, width, height, Xc):
     sph = (np.stack([lon / (2 * np.pi), -lat / (2 * np.pi)], -1) * size
            + np.stack([width, height], -1) * 0.5)
     return np.where((kind == 7)[..., None], sph, pin)
+
+
+def residual_np(kind, params, width, height, Xc, observed):
+    """Float64 project(Xc) - observed, the x difference of a SPHERICAL view
+    wrapped into one turn (models/cameras.py residual)."""
+    d = project_cam_np(kind, params, width, height, Xc) - observed
+    turn = np.maximum(np.asarray(width, np.float64), np.asarray(height, np.float64))
+    dx = d[..., 0] - turn * np.round(d[..., 0] / turn)
+    return np.where((np.asarray(kind) == 7)[..., None], np.stack([dx, d[..., 1]], -1), d)

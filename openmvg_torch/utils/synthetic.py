@@ -1,13 +1,19 @@
-"""Synthetic multi-view datasets (counterpart: openmvg_tpu/utils/synthetic.py,
-render_textured_sphere_dataset and the camera helper it needs)."""
+"""Synthetic multi-view datasets (counterpart: openmvg_tpu/utils/synthetic.py:
+ring_scene, render_textured_sphere_dataset and the camera helper they
+need), and SPHERICAL scenes on the same camera ring: the reference test's
+6-view scene (tests/test_spherical_sfm.py) and a 360-degree room of a size
+users record, written as the CLI's files."""
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from openmvg_torch.io.gt_loaders import write_strecha_camera
 from openmvg_torch.io.image import write_image
+from openmvg_torch.models import cameras as cm
+from openmvg_torch.sfm.scene import Scene
 
 
 def _look_at(center, target, up=(0.0, 1e-6, 1.0)):
@@ -20,6 +26,176 @@ def _look_at(center, target, up=(0.0, 1e-6, 1.0)):
     x /= np.linalg.norm(x)
     y = np.cross(z, x)
     return np.stack([x, y, z], axis=0)
+
+
+class NViewScene(NamedTuple):
+    K: np.ndarray        # (V, 3, 3)
+    R: np.ndarray        # (V, 3, 3) world->cam
+    t: np.ndarray        # (V, 3)
+    C: np.ndarray        # (V, 3) camera centres
+    X: np.ndarray        # (P, 3) world points
+    x: np.ndarray        # (V, P, 2) pixel projections
+    visible: np.ndarray  # (V, P) bool (in front and in the image)
+
+    @property
+    def n_views(self):
+        return self.R.shape[0]
+
+    @property
+    def n_points(self):
+        return self.X.shape[0]
+
+
+def _ring(n_views, radius):
+    """The ring of test_data_sets.cpp NRealisticCamerasRing: centres, and
+    world->camera rotations looking at the origin."""
+    theta = 2 * np.pi * np.arange(n_views) / n_views
+    C = np.stack([radius * np.cos(theta), 0.2 * np.sin(theta * 2), radius * np.sin(theta)], 1)
+    return C, np.stack([_look_at(c, [0.0, 0.0, 0.0]) for c in C])
+
+
+def ring_scene(n_views=12, n_points=100, focal=1000.0, width=1000, height=1000,
+               radius=2.0, seed=0, jitter=0.0):
+    """Pinhole cameras on a ring of `radius` viewing a unit point cloud at
+    the origin (test_data_sets.cpp NRealisticCamerasRing)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-0.5, 0.5, size=(n_points, 3))
+    K = np.zeros((n_views, 3, 3))
+    K[:] = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1]])
+    C, R = _ring(n_views, radius)
+    t = -np.einsum("vij,vj->vi", R, C)
+    Xc = np.einsum("vij,pj->vpi", R, X) + t[:, None, :]
+    proj = Xc[..., :2] / Xc[..., 2:3]
+    x = np.einsum("vij,vpj->vpi", K[:, :2, :2], proj) + K[:, None, :2, 2]
+    if jitter > 0:
+        x = x + rng.normal(scale=jitter, size=x.shape)
+    visible = ((Xc[..., 2] > 0) & (x[..., 0] >= 0) & (x[..., 0] < width)
+               & (x[..., 1] >= 0) & (x[..., 1] < height))
+    return NViewScene(K=K, R=R, t=t, C=C, X=X, x=x, visible=visible)
+
+
+def _spherical_scene(n_views, width, height):
+    """A Scene of n_views views sharing one SPHERICAL intrinsic, no pose."""
+    sc = Scene()
+    sc.view_filename = [f"v{i}.jpg" for i in range(n_views)]
+    sc.view_intrinsic = np.zeros(n_views, np.int32)
+    sc.view_pose = np.arange(n_views, dtype=np.int32)
+    sc.view_wh = np.tile([[width, height]], (n_views, 1)).astype(np.int32)
+    sc.cameras = cm.Cameras(kind=np.array([cm.SPHERICAL], np.int32),
+                            width=np.array([float(width)]), height=np.array([float(height)]),
+                            params=np.zeros((1, cm.MAX_PARAMS)))
+    sc.pose_valid = np.zeros(n_views, bool)
+    sc.pose_R = np.tile(np.eye(3), (n_views, 1, 1))
+    sc.pose_C = np.zeros((n_views, 3))
+    return sc
+
+
+def project_spherical(R, C, X, width, height, device="cpu"):
+    """Equirectangular pixels (N, 2) of points X (N, 3) in cameras (R (N, 3,
+    3) world->cam, C (N, 3)): one float64 projection call on `device`."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    Xc = torch.einsum("nij,nj->ni", t(R), t(X) - t(C))
+    n = Xc.shape[0]
+    px = cm.project_cam(torch.full((n,), cm.SPHERICAL, device=device),
+                        torch.zeros((n, cm.MAX_PARAMS), dtype=torch.float64, device=device),
+                        t(np.full(n, float(width))), t(np.full(n, float(height))), Xc)
+    return px.cpu().numpy()
+
+
+def spherical_ring_scene(n_views=6, n_points=150, seed=0, width=2048, height=1024):
+    """The reference test's spherical scene (tests/test_spherical_sfm.py
+    _spherical_scene_and_data): ring_scene's cameras and points, one
+    SPHERICAL intrinsic, every point a feature of every view, and each view
+    matched to the next two.  Returns (ring scene, Scene, feats, matches)."""
+    s = ring_scene(n_views=n_views, n_points=n_points, seed=seed)
+    sc = _spherical_scene(n_views, width, height)
+    v, p = np.divmod(np.arange(n_views * n_points), n_points)
+    px = project_spherical(s.R[v], s.C[v], s.X[p], width, height).reshape(n_views, n_points, 2)
+    feats = list(px)
+    every = np.stack([np.arange(n_points)] * 2, axis=1)
+    matches = {(i, j): every.copy() for i in range(n_views)
+               for j in range(i + 1, min(i + 3, n_views))}
+    return s, sc, feats, matches
+
+
+def spherical_room_dataset(out_dir, n_views=100, width=5376, height=2688, n_obs=300_000,
+                           radius=2.0, max_step=3, noise_px=0.5, outlier_share=0.1, seed=0,
+                           device="cpu"):
+    """A 360-degree camera walked around a room: n_views equirectangular
+    views of width x height on the reference ring (radius `radius`,
+    ring_scene's layout) and points on the room's surroundings, 3 to 6
+    units from its centre and up to 1.5 above or below, with pixel noise
+    noise_px.  Each point is seen by the 2h + 1 views nearest it in
+    azimuth, h drawn from 2..8 (at most (n_views - 1) // 2), about n_obs
+    observations in all: short tracks, as features that stop matching, so
+    that the views are chained around the ring and the last ones close the
+    loop.  Every
+    pair of a point's views up to max_step ring steps apart is matched, and
+    outlier_share of the matches are replaced by random features of the
+    second view: putative matches, for a geometric filter to clean.
+
+    Writes out_dir/sfm_data.json (one SPHERICAL intrinsic, no pose),
+    out_dir/matches/v<i>.feat and .desc (zero descriptors) and
+    out_dir/matches/matches.putative.bin.  Returns (sfm_data path, matches
+    directory, ground-truth R (V, 3, 3), ground-truth C (V, 3))."""
+    from openmvg_torch.io.features_io import save_descs, save_feats
+    from openmvg_torch.io.matches_io import save_matches
+    from openmvg_torch.io.sfm_data import save_sfm_data
+
+    rng = np.random.default_rng(seed)
+    C, R = _ring(n_views, radius)
+    lo, hi = min(2, (n_views - 1) // 2), min(8, (n_views - 1) // 2)
+    half = rng.integers(lo, hi + 1, size=max(1, n_obs // (lo + hi + 1)))
+    n_pts = len(half)
+    phi = rng.uniform(0, 2 * np.pi, n_pts)
+    dist = rng.uniform(3.0, 6.0, n_pts)
+    X = np.stack([dist * np.cos(phi), rng.uniform(-1.5, 1.5, n_pts), dist * np.sin(phi)], 1)
+    # the views of each point, consecutive: a = 0 .. 2h around the nearest
+    length = 2 * half + 1
+    start = np.rint(phi / (2 * np.pi / n_views)).astype(np.int64) - half
+    obs_pt = np.repeat(np.arange(n_pts), length)
+    a = np.arange(len(obs_pt)) - np.repeat(np.cumsum(length) - length, length)
+    obs_view = (np.repeat(start, length) + a) % n_views
+    px = project_spherical(R[obs_view], C[obs_view], X[obs_pt], width, height, device)
+    px = px + rng.normal(scale=noise_px, size=px.shape)
+    px[:, 0] %= width   # a feature lies in the panorama, across its seam too
+    # feature ids: the observations of a view, in point order
+    order = np.lexsort((obs_pt, obs_view))
+    counts = np.bincount(obs_view, minlength=n_views)
+    first = np.cumsum(counts) - counts
+    feat = np.empty(len(obs_pt), np.int64)
+    feat[order] = np.arange(len(obs_pt)) - np.repeat(first, counts)
+
+    md = os.path.join(out_dir, "matches")
+    os.makedirs(md, exist_ok=True)
+    sc = _spherical_scene(n_views, width, height)
+    sc.root_path = os.path.join(out_dir, "images")
+    for v in range(n_views):
+        sel = order[first[v]:first[v] + counts[v]]
+        save_feats(os.path.join(md, f"v{v}.feat"), np.c_[px[sel], np.ones(len(sel)),
+                                                        np.zeros(len(sel))])
+        save_descs(os.path.join(md, f"v{v}.desc"), np.zeros((len(sel), 128), np.uint8))
+    # every pair of a point's views up to max_step ring steps apart
+    rows = []
+    for k in range(1, max_step + 1):
+        o = np.nonzero(a + k < np.repeat(length, length))[0]
+        vi, vj, fi, fj = obs_view[o], obs_view[o + k], feat[o], feat[o + k]
+        swap = vi > vj
+        rows.append(np.stack([np.where(swap, vj, vi), np.where(swap, vi, vj),
+                              np.where(swap, fj, fi), np.where(swap, fi, fj)], 1))
+    rows = np.concatenate(rows)
+    rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
+    out = rng.random(len(rows)) < outlier_share
+    n_j = counts[rows[out, 1]]
+    rows[out, 3] = (rows[out, 3] + rng.integers(1, n_j)) % n_j
+    cut = np.nonzero(np.diff(rows[:, 0] * n_views + rows[:, 1]))[0] + 1
+    matches = {(int(r[0, 0]), int(r[0, 1])): r[:, 2:4] for r in np.split(rows, cut)}
+    save_matches(matches, os.path.join(md, "matches.putative.bin"))
+    sfm = os.path.join(out_dir, "sfm_data.json")
+    save_sfm_data(sc, sfm)
+    return sfm, md, R, C
 
 
 def render_textured_sphere_dataset(out_dir, n_views=100, size=1024,

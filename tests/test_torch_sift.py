@@ -106,6 +106,12 @@ def test_sift_upright_and_ultra_shapes():
 
 
 def test_akaze_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="AKAZE"):
-        tdescriber.describe_image(np.zeros((32, 32), np.float32), "AKAZE_FLOAT",
-                                  device="cpu")
+    """AKAZE is ported (ops/akaze.py, parity in tests/test_torch_akaze.py):
+    the describer takes it, a blank image gives no features of its widths,
+    and only a name the reference does not know raises."""
+    for method, dim, dt in (("AKAZE_FLOAT", 64, np.float32), ("AKAZE_MLDB", 60, np.uint8)):
+        feats, descs = tdescriber.describe_image(np.zeros((32, 32), np.float32), method,
+                                                 device="cpu")
+        assert feats.shape == (0, 4) and descs.shape == (0, dim) and descs.dtype == dt
+    with pytest.raises(ValueError, match="ORB"):
+        tdescriber.describe_image(np.zeros((32, 32), np.float32), "ORB", device="cpu")
