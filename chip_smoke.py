@@ -86,7 +86,8 @@ last line is printed):
             on the sphere's putative matches (printed, not gated);
             known-poses on the INCREMENTAL scene (at least half its
             landmarks, rmse < 1 px, K1 launched, and K1 on the stage's own
-            pair list and descriptor stack equal to its plain version);
+            pair list and descriptor stack equal to its plain version,
+            timed beside cdist + topk in chunks of pairs that fit the card);
             vlad -k 64 -t 10 (every view in a pair, K2 launched, the
             embeddings on the card within 1e-5 of their plain float64
             version, and the Lloyd sums of the codebook's pooled rows by
@@ -95,6 +96,35 @@ last line is printed):
             10 putative pairs (a cut; every pair keeps a match, >= 95%
             within 4 px, one pair's VLD differences on the card within 1e-9
             of the CPU float64 version)
+  tools     the rest of the SfM layer and the CLI's tools on the pipeline's
+            matches and the INCREMENTAL scene, each step with every kernel's
+            count set to 0 just before and read just after: localize 10
+            held-out views rendered halfway between ring views (>= 9
+            localized, each centre within 0.015 of the renderer's after the
+            eval alignment, K2 launched); refine -n 30 with K3 off, then with
+            OMT_FUSED_SMATVEC=1 (the cost does not rise, rmse within 1e-3 px
+            of the input's and of each other, eval position_rmse <= 0.006, K2
+            in both, K3 only in the second), refine -d 2 exits non-zero
+            naming ROADMAP item 9; cluster -n 4 (4 files whose views cover the
+            posed views, K2); geo-register --use_priors on the renderer's
+            centres under a planted similarity into ECEF (scale 10, 10%
+            outliers; the scale within 1% once the reconstruction's gauge is
+            taken out, the median centre within 0.06 of its prior);
+            harmonize with planted per-channel gains and offsets on 10 copies
+            (undone within 0.05, the other gains within 0.05 of 1, 100 PNGs);
+            export in every format (the counts of nvm, colmap, bundler and
+            openmvs equal the scene's; undistorted, on a copy with a planted
+            radial distortion, 100 PNGs, view 0 within 1 gray level of the CPU
+            undistort_image); frustum-filter, change-origin, list-pairs -V and
+            -G, convert-matches -a, matches2tracks, split-matches, the SVG
+            exports (first 10 pairs) and retrieval-quality of the vlad pairs,
+            each count printed equal to the files'; bench-ann --source sift
+            --sweep (recall >= 0.90 at top_c 16, K1 launched); the L-inf
+            solvers on the 1,000 longest tracks and 10 views' resections (up to
+            1,000 points each), the observations within 0.5 px (equal to the CPU
+            run within 1e-6 relative, within 0.01 / 0.006 of the L2 scene);
+            --profile DIR on refine, in a process of its own (one trace
+            naming K2's kernel and the bundle_adjustment stage)
   camera3   the one-command main path as users run it, every flag at its
             default but the focal: pipeline -i images -o run -f <focal>
             (camera model 3 PINHOLE_RADIAL_K3, NORMAL, EXHAUSTIVE pairs,
@@ -166,13 +196,15 @@ views).
 
 The last three lines of standard output are the kernels JSON (each
 kernel's launches on the main path, and on the sfm2, stellar and camera3
-paths as launches_v2, launches_stellar and launches_camera3, K1's in the
+paths as launches_v2, launches_stellar and launches_camera3, each step's of the
+tools phase as launches_tools, K1's in the
 matchers phase as launches_matchers and K2's in vlad as launches_vlad,
 with K1's check and times at known-poses' shape and at AKAZE_FLOAT's
 64-d float32 shape, K2's at the VLAD Lloyd sums' shape, and K2's and K3's
 launches in the spherical phase;
 every phase's stage and engine seconds, and each matchers, describers,
-spherical, cubify and vo step's seconds and readings), then nvidia-smi's name and power limit, then
+spherical, cubify, vo and tools step's seconds and readings), then
+nvidia-smi's name and power limit, then
 {"ok": true, "device": {...}}.  It imports nothing of JAX or openmvg_tpu.
 """
 
@@ -1178,9 +1210,11 @@ def k1_at_known_poses(two_nn, scene_path, md, dev):
     """K1 on the pair list and descriptor stack that known-poses builds
     (every posed pair of the scene, in launches of at most MAX_PAIRS)
     against its plain version: d1, d2 and idx1 equal.  Returns the shape,
-    the largest |error|, the kernel's and the plain version's milliseconds
-    and the bound.  No library time: cdist over every pair at once would
-    hold P x Nmax^2 float32 distances (251 GB at 4,950 pairs of 3,562)."""
+    the largest |error|, the kernel's, the plain version's and the library
+    call's milliseconds and the bound.  The library call is cdist + topk in
+    chunks of pairs whose distances fit 4 GiB (k1_library_chunked): over
+    every pair at once it would hold P x Nmax^2 float32 distances (251 GB at
+    4,950 pairs of 3,562)."""
     import itertools
 
     import numpy as np
@@ -1215,15 +1249,18 @@ def k1_at_known_poses(two_nn, scene_path, md, dev):
         err = max(err, (g[0] - r[0]).abs().max().item(), (g[1] - r[1]).abs().max().item())
     del got, ref
     ms = cuda_ms(kernel, 3, 1)
+    all_pairs = torch.cat(chunks)
+    lib_ms = cuda_ms(lambda: k1_library_chunked(stack, counts, all_pairs), 1, 1)
     bounds = [two_nn_bound_ms(stack, counts, c, c.shape[0] * stack.shape[1]) for c in chunks]
     bound = sum(b for b, _ in bounds)
     log(f"[matchers] K1 at known-poses' shape ({len(pairs)} pairs in {len(chunks)} launch(es), "
         f"Nmax {stack.shape[1]}, counts {int(counts.min())}..{int(counts.max())}): equal to "
-        f"the plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-        f"({bounds[0][1]}); {bound / ms * 100:.2f}% of the bound")
+        f"the plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist + topk in "
+        f"chunks {lib_ms:.3f} ms, bound {bound:.4f} ms ({bounds[0][1]}); "
+        f"{bound / ms * 100:.2f}% of the bound")
     return dict(pairs=len(pairs), launches=len(chunks), nmax=int(stack.shape[1]),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bounds[0][1], library_ms=None)
+                bound_by=bounds[0][1], library_ms=lib_ms)
 
 
 def k2_at_vlad_lloyd(seg_sum, vlad, pooled, centers, dev):
@@ -2043,6 +2080,512 @@ def phase_vo(kernel_mods, work, dev, n_frames=60, size=1024, arc_step=0.014):
                 median_step_angle_deg=med, max_step_angle_deg=max(angles), klt_motion_px=flow)
 
 
+def parse_numbers(text):
+    return [float(x) for x in re.findall(r"-?\d+(?:\.\d*)?(?:e[-+]?\d+)?", text)]
+
+
+def openmvs_counts(path):
+    """(images, vertices) of an openMVS .mvs file as export_openmvs writes it."""
+    import struct
+
+    with open(path, "rb") as f:
+        b = f.read()
+    pos = 12                                     # "MVSI", version, reserved
+
+    def u64():
+        nonlocal pos
+        pos += 8
+        return struct.unpack_from("<Q", b, pos - 8)[0]
+
+    def skip_str():
+        nonlocal pos
+        n = u64()
+        pos += n
+
+    for _ in range(u64()):                       # platforms
+        skip_str()
+        for _ in range(u64()):                   # cameras
+            skip_str()
+            skip_str()
+            pos += 8 + 8 * (9 + 9 + 3)
+        n_poses = u64()
+        pos += 8 * 12 * n_poses
+    n_img = u64()
+    for _ in range(n_img):
+        skip_str()
+        skip_str()
+        pos += 16
+    return n_img, u64()
+
+
+def k1_library_chunked(stack, counts, pairs, chunk_bytes=4 << 30):
+    """cdist + topk over every pair of `pairs` (a (P, 2) tensor), in chunks
+    of pairs whose (chunk, Nmax, Nmax) float32 distances fit chunk_bytes."""
+    import torch
+
+    n = stack.shape[1]
+    step = max(1, chunk_bytes // (4 * n * n))
+    a_all = stack.float()
+    out = []
+    for s in range(0, pairs.shape[0], step):
+        p = pairs[s:s + step].long()
+        d = torch.cdist(a_all[p[:, 0]], a_all[p[:, 1]])
+        out.append(torch.topk(d, 2, dim=-1, largest=False).values)
+    return out
+
+
+def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
+    """The rest of the SfM layer and the CLI's tools on the pipeline's run
+    directory and the INCREMENTAL scene, each step with every kernel's count
+    set to 0 just before and read just after (the gates of the module
+    note).  Returns each step's seconds, launches and readings."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.geometry.geodesy import lla_to_ecef
+    from openmvg_torch.geometry.similarity import align_poses_rts
+    from openmvg_torch.io.image import read_image, write_image
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+    from openmvg_torch.io.sfm_data import load_sfm_data, save_sfm_data
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.ops import linfinity, resection
+    from openmvg_torch.ops.image_ops import undistort_image
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm.scene import reprojection_residuals, rmse
+    from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
+
+    md, work, gtdir = run["md"], run["work"], run["gtdir"]
+    Rs, Cs, K, size = run["gt"]
+    scene_path = os.path.join(srun["recon"], "sfm_data.json")
+    scene = load_sfm_data(scene_path)
+    posed = [v for v in range(scene.n_views)
+             if scene.view_pose[v] >= 0 and scene.pose_valid[scene.view_pose[v]]]
+    tw = os.path.join(work, "tools")
+    os.makedirs(tw, exist_ok=True)
+    out, launches_by_step = {}, {}
+
+    def step(name, stages):
+        secs, printed, launches = run_stages(kernel_mods, stages)
+        out[name] = dict(s=sum(secs.values()), launches=launches)
+        launches_by_step[name] = launches
+        return out[name], printed
+
+    def gauge():
+        """The eval alignment: the similarity taking the reconstruction's
+        centres to the renderer's."""
+        est = np.stack([scene.pose_C[scene.view_pose[v]] for v in posed])
+        sim = align_poses_rts(torch.as_tensor(est), torch.as_tensor(Cs[posed]))
+        return float(sim.scale), sim.R.numpy(), sim.t.numpy()
+
+    s_e, R_e, t_e = gauge()
+
+    # 1. localize 10 held-out views, halfway between ring views
+    step_rad = min(2 * math.pi / n_views, 0.063)
+    qv = list(range(n_views // 20, n_views, max(1, n_views // 10)))[:10]
+    thetas = [(v + 0.5 - n_views / 2) * step_rad for v in qv]
+    qdir = os.path.join(tw, "queries")
+    _, _, _, qC, _ = render_textured_sphere_dataset(
+        qdir, size=size, focal=K[0, 0], seed=1, thetas=thetas, device=dev)
+    qimgs = [os.path.join(qdir, "images", f"img_{i:02d}.png") for i in range(len(thetas))]
+    rec, printed = step("localize", [("localize", ["localize", "-i", scene_path, "-m", md,
+                                                   "-q", *qimgs])])
+    errs, inliers = [], []
+    for i, line in enumerate(l for l in printed["localize"].getvalue().splitlines()
+                             if l.startswith(qimgs[0][:-6])):
+        if "localized with" not in line:
+            continue
+        inliers.append(int(line.split("localized with ")[1].split()[0]))
+        C = np.asarray(json.loads(line.split("C = ")[1]))
+        errs.append(float(np.linalg.norm(s_e * R_e @ C + t_e - qC[i])))
+    rec.update(queries=len(qimgs), found=len(errs), inliers=inliers, center_err=errs,
+               s_per_query=rec["s"] / len(qimgs))
+    log(f"[tools] localize: {len(errs)}/{len(qimgs)} queries localized, inliers {inliers}, "
+        f"centre errors after the eval alignment {[round(e, 5) for e in errs]}, "
+        f"{rec['s_per_query']:.3f} s a query, launches {rec['launches']}")
+    if len(errs) < 9:
+        fail(f"[tools] localize found only {len(errs)} of {len(qimgs)} queries")
+    if max(errs) > 0.015:
+        fail(f"[tools] a localized centre lies {max(errs):.4f} from the renderer's (> 0.015)")
+    if rec["launches"]["seg_sum"] < 1:
+        fail("[tools] localize did not launch K2")
+
+    # 2. refine -n 30 twice: K3 off, then OMT_FUSED_SMATVEC=1
+    prob, _ = ba.problem_from_scene(scene, refine_intrinsics=ba.ADJUST_ALL, device=dev)
+    cost0 = float(ba.robust_cost(prob, ba.BAConfig(), ba.cam_fast_ok(prob)))
+    rmse0 = rmse(scene)
+    del prob
+    refined = {}
+    for tag, fused in (("refine", False), ("refine_fused", True)):
+        r = os.path.join(tw, f"{tag}.json")
+        if fused:
+            os.environ["OMT_FUSED_SMATVEC"] = "1"
+        try:
+            rec, printed = step(tag, [("refine", ["refine", "-i", scene_path, "-o", r,
+                                                  "-n", "30"]),
+                                      ("eval", ["eval", "-i", r, "-g", gtdir])])
+        finally:
+            os.environ.pop("OMT_FUSED_SMATVEC", None)
+        cost = float(printed["refine"].getvalue().split("BA: cost=")[1].split()[0])
+        stats = json.loads(printed["eval"].getvalue())
+        refined[tag] = rmse(load_sfm_data(r))
+        rec.update(cost0=cost0, cost=cost, rmse0=rmse0, rmse=refined[tag],
+                   position_rmse=stats.get("position_rmse"))
+        log(f"[tools] {tag}: cost {cost0:.4f} -> {cost:.4f}, rmse {rmse0:.5f} -> "
+            f"{refined[tag]:.5f} px, position_rmse {stats.get('position_rmse')}, "
+            f"{rec['s']:.2f} s, launches {rec['launches']}")
+        if not cost <= cost0 + 5e-5:         # refine prints 4 decimals
+            fail(f"[tools] {tag} raised the cost from {cost0} to {cost}")
+        if not refined[tag] <= rmse0 + 1e-3:
+            fail(f"[tools] {tag} rmse {refined[tag]:.5f} px above the input's {rmse0:.5f} + 1e-3")
+        if not stats.get("ok") or not stats["position_rmse"] <= 0.006:
+            fail(f"[tools] {tag} position_rmse {stats.get('position_rmse')} above 0.006")
+        if rec["launches"]["seg_sum"] < 1:
+            fail(f"[tools] {tag} did not launch K2")
+        if (rec["launches"]["smatvec"] > 0) != fused:
+            fail(f"[tools] {tag}: K3 launched {rec['launches']['smatvec']} times")
+    if abs(refined["refine"] - refined["refine_fused"]) > 1e-3:
+        fail(f"[tools] refine's rmse {refined['refine']} and the fused run's "
+             f"{refined['refine_fused']} differ by more than 1e-3 px")
+    r = subprocess.run([sys.executable, "-m", "openmvg_torch.cli", "refine", "-i", scene_path,
+                        "-o", os.path.join(tw, "d2.json"), "-d", "2"],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode == 0 or "item 9" not in r.stderr:
+        fail(f"[tools] refine -d 2 exited {r.returncode} without the item-9 message")
+    log(f"[tools] refine -d 2 exits {r.returncode}: {r.stderr.strip().splitlines()[-1]}")
+
+    # 3. cluster -n 4
+    cdir = os.path.join(tw, "clusters")
+    rec, _ = step("cluster", [("cluster", ["cluster", "-i", scene_path, "-o", cdir,
+                                           "-n", "4"])])
+    files = sorted(os.listdir(cdir))
+    union = set()
+    for f in files:
+        sub = load_sfm_data(os.path.join(cdir, f))
+        union |= {v for v in range(sub.n_views)
+                  if sub.view_pose[v] >= 0 and sub.pose_valid[sub.view_pose[v]]}
+    rec.update(files=len(files), views=len(union))
+    log(f"[tools] cluster -n 4: {len(files)} files, {len(union)} views in their union, "
+        f"{rec['s']:.2f} s, launches {rec['launches']}")
+    if len(files) != 4 or union != set(posed):
+        fail(f"[tools] cluster wrote {len(files)} files covering {len(union)} of "
+             f"{len(posed)} posed views")
+    if rec["launches"]["seg_sum"] < 1:
+        fail("[tools] cluster did not launch K2")
+
+    # 4. geo-register --use_priors: the renderer's centres under a planted
+    #    similarity into ECEF near Paris, scale 10, 10% of them outliers
+    rng = np.random.default_rng(7)
+    s_p = 10.0
+    a = rng.normal(size=3)
+    R_p = torch.linalg.matrix_exp(torch.as_tensor(
+        [[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])).numpy()
+    base = np.asarray(lla_to_ecef(48.8566, 2.3522, 35.0))
+    geo = load_sfm_data(scene_path)
+    prior = s_p * Cs @ R_p.T + base
+    outl = rng.choice(n_views, n_views // 10, replace=False)
+    prior[outl] += rng.normal(scale=30.0, size=(len(outl), 3))
+    geo.prior_center, geo.prior_center_weight = prior, np.ones((n_views, 3))
+    gin, gout = os.path.join(tw, "geo_in.json"), os.path.join(tw, "geo_out.json")
+    save_sfm_data(geo, gin)
+    rec, printed = step("geo_register", [("geo-register", ["geo-register", "-i", gin, "-o",
+                                                            gout, "--use_priors"])])
+    scale = float(printed["geo-register"].getvalue().split("scale=")[1].split(")")[0])
+    reg = load_sfm_data(gout)
+    inl = [v for v in posed if v not in set(outl.tolist())]
+    d = np.linalg.norm(np.stack([reg.pose_C[reg.view_pose[v]] for v in inl]) - prior[inl], axis=1)
+    rec.update(scale=scale, planted=s_p, recovered=scale / s_e, median_err=float(np.median(d)))
+    log(f"[tools] geo-register: scale {scale:.6g} (the reconstruction's gauge {s_e:.6g} taken "
+        f"out: {scale / s_e:.6g} against the planted {s_p}), median registered centre "
+        f"{rec['median_err']:.4f} from its inlier prior, {rec['s']:.2f} s")
+    if abs(scale / s_e - s_p) > 0.01 * s_p:
+        fail(f"[tools] geo-register recovered scale {scale / s_e:.5g}, planted {s_p}")
+    if rec["median_err"] > 0.06:
+        fail(f"[tools] geo-register median centre error {rec['median_err']:.4f} > 0.06")
+
+    # 5. harmonize: 10 copies under planted per-channel gains and offsets
+    init = load_sfm_data(run["sfm"])
+    hin, hout = os.path.join(tw, "harm_in"), os.path.join(tw, "harm_out")
+    os.makedirs(hin, exist_ok=True)
+    planted = {}
+    for v, name in enumerate(init.view_filename):
+        src = os.path.join(init.root_path, name)
+        if v in qv:
+            g, o = rng.uniform(0.8, 1.2, 3), rng.uniform(-0.05, 0.05, 3)
+            planted[v] = (g, o)
+            im = read_image(src).astype(np.float64) / 255.0
+            write_image(os.path.join(hin, name), np.clip(im * g + o, 0, 1))
+        else:
+            shutil.copyfile(src, os.path.join(hin, name))
+    init.root_path = hin
+    hscene = os.path.join(tw, "harm_scene.json")
+    save_sfm_data(init, hscene)
+    ref_v = next(v for v in range(n_views) if v not in planted)
+    rec, printed = step("harmonize", [("harmonize", [
+        "harmonize", "-i", hscene, "-m", os.path.join(md, "matches.f.bin"), "-d", md,
+        "-o", hout, "-r", str(ref_v)])])
+    gains = {}
+    for line in printed["harmonize"].getvalue().splitlines():
+        m = re.match(r"\s+(\S+): gain=\[(.*)\] offset=\[(.*)\]", line)
+        if m:
+            gains[init.view_filename.index(m.group(1))] = (
+                np.asarray(parse_numbers(m.group(2))), np.asarray(parse_numbers(m.group(3))))
+    undo = max(max(np.abs(gains[v][0] - 1 / g).max(), np.abs(gains[v][1] + o / g).max())
+               for v, (g, o) in planted.items())
+    others = max(np.abs(gains[v][0] - 1).max() for v in gains if v not in planted)
+    n_png = len([f for f in os.listdir(hout) if f.endswith(".png")])
+    rec.update(planted_views=len(planted), undo_err=float(undo), others_gain_err=float(others),
+               pngs=n_png)
+    log(f"[tools] harmonize (reference view {ref_v}): the planted gains and offsets undone "
+        f"within {undo:.4f}, the other views' gains within {others:.4f} of 1, {n_png} PNGs, "
+        f"{rec['s']:.2f} s")
+    if undo > 0.05 or others > 0.05 or n_png != n_views:
+        fail(f"[tools] harmonize: undo error {undo:.4f}, others {others:.4f}, {n_png} PNGs")
+
+    # 6. export -f in all 15 formats (undistorted on a copy whose camera has
+    #    a planted radial distortion, so that the card resamples every view)
+    edir = os.path.join(tw, "export")
+    os.makedirs(edir, exist_ok=True)
+    dist = load_sfm_data(scene_path)
+    prm = np.asarray(dist.cameras.params).copy()
+    prm[:, 3:6] = [-0.02, 0.0, 0.0]
+    dist.cameras = dist.cameras._replace(kind=np.full_like(dist.cameras.kind,
+                                                           cm.PINHOLE_RADIAL_K3), params=prm)
+    dpath = os.path.join(tw, "distorted.json")
+    save_sfm_data(dist, dpath)
+    fmts = ["json", "bin", "ply", "nvm", "colmap", "baf", "bundler", "pmvs", "mve", "openmvs",
+            "agisoft", "meshlab", "mvstexturing", "cmpmvs", "frustums", "webgl", "undistorted"]
+    ext = {"json": ".json", "bin": ".bin", "ply": ".ply", "nvm": ".nvm", "baf": ".baf",
+           "bundler": ".out", "openmvs": ".mvs", "frustums": ".ply", "webgl": ".html"}
+    stages = [(f, ["export", "-i", dpath if f == "undistorted" else scene_path,
+                   "-o", os.path.join(edir, f + ext.get(f, "")), "-f", f]) for f in fmts]
+    rec, _ = step("export", stages)
+    for f in fmts:
+        p = os.path.join(edir, f + ext.get(f, ""))
+        size_b = (os.path.getsize(p) if os.path.isfile(p) else
+                  sum(os.path.getsize(os.path.join(a, b)) for a, _, bs in os.walk(p) for b in bs))
+        if size_b <= 0:
+            fail(f"[tools] export -f {f} wrote nothing")
+    ok = scene.obs_valid & scene.X_valid[scene.obs_landmark]
+    seen_by = {}
+    for i in np.nonzero(ok)[0]:
+        seen_by.setdefault(int(scene.obs_landmark[i]), set()).add(int(scene.obs_view[i]))
+    n_lm1 = sum(1 for vs in seen_by.values() if vs & set(posed))
+    n_lm2 = sum(1 for vs in seen_by.values() if len(vs & set(posed)) >= 2)
+    with open(os.path.join(edir, "nvm.nvm")) as fh:
+        nv = fh.read().split("\n")
+    nvm = (int(nv[2]), int(nv[3 + int(nv[2])]))
+    with open(os.path.join(edir, "bundler.out")) as fh:
+        bundler = tuple(int(x) for x in fh.read().split("\n")[1].split())
+    with open(os.path.join(edir, "colmap", "images.txt")) as fh:
+        n_img = (len(fh.read().split("\n")) - 2) // 2
+    with open(os.path.join(edir, "colmap", "points3D.txt")) as fh:
+        n_pts = len(fh.read().strip().split("\n")) - 1
+    mvs = openmvs_counts(os.path.join(edir, "openmvs.mvs"))
+    want = dict(nvm=(len(posed), n_lm1), bundler=(len(posed), n_lm1),
+                colmap=(len(posed), scene.n_landmarks), openmvs=(len(posed), n_lm2))
+    got = dict(nvm=nvm, bundler=bundler, colmap=(n_img, n_pts), openmvs=mvs)
+    und = sorted(f for f in os.listdir(os.path.join(edir, "undistorted")) if f.endswith(".png"))
+    v0 = dist.view_filename[0]
+    im = torch.as_tensor(read_image(os.path.join(dist.root_path, v0)), dtype=torch.float32) / 255
+    cpu = undistort_image(im.movedim(-1, 0), cm.PINHOLE_RADIAL_K3, prm[0],
+                          float(dist.cameras.width[0]), float(dist.cameras.height[0]))
+    cpu = np.clip(cpu.movedim(0, -1).numpy() * 255.0, 0, 255).astype(np.uint8).astype(int)
+    card = read_image(os.path.join(edir, "undistorted", os.path.basename(v0))).astype(int)
+    und_err = int(np.abs(card - cpu).max())
+    rec.update(formats=len(fmts), counts=got, undistorted_pngs=len(und),
+               undistorted_vs_cpu_max_gray=und_err)
+    log(f"[tools] export: {len(fmts)} formats written; (poses, landmarks) {got} against "
+        f"{want}; undistorted {len(und)} PNGs, view 0 within {und_err} gray level(s) of the "
+        f"CPU undistort_image; {rec['s']:.2f} s")
+    if got != want:
+        fail(f"[tools] export counts {got} differ from the scene's {want}")
+    if len(und) != n_views or und_err > 1:
+        fail(f"[tools] export -f undistorted: {len(und)} PNGs, {und_err} gray levels off")
+
+    # 7. the small tools
+    fm = os.path.join(md, "matches.f.bin")
+    first10 = os.path.join(tw, "first10.bin")
+    fmatch = load_matches(fm)
+    save_matches({p: fmatch[p] for p in sorted(fmatch)[:10]}, first10)
+    sm = os.path.join(tw, "split", "m.bin")
+    os.makedirs(os.path.dirname(sm), exist_ok=True)
+    vp = os.path.join(work, "vlad_pairs.txt")
+    t = {k: os.path.join(tw, k) for k in ("ff.txt", "co", "lpV.txt", "lpG.txt", "m.txt",
+                                          "adj.svg", "tracks.txt", "kp", "ms", "ts")}
+    rec, printed = step("small_tools", [
+        ("frustum-filter", ["frustum-filter", "-i", scene_path, "-o", t["ff.txt"]]),
+        ("change-origin", ["change-origin", "-i", scene_path, "-o", t["co"], "-f"]),
+        ("list-pairs-V", ["list-pairs", "-i", scene_path, "-o", t["lpV.txt"], "-V", "-d", "2"]),
+        ("list-pairs-G", ["list-pairs", "-i", gin, "-o", t["lpG.txt"], "-G"]),
+        ("convert-matches", ["convert-matches", "-i", fm, "-o", t["m.txt"], "-a", t["adj.svg"]]),
+        ("matches2tracks", ["matches2tracks", "-i", fm, "-o", t["tracks.txt"]]),
+        ("split-matches", ["split-matches", "-i", fm, "-o", sm]),
+        ("export-keypoints", ["export-keypoints", "-i", scene_path, "-d", md, "-o", t["kp"]]),
+        ("export-matches", ["export-matches", "-i", scene_path, "-m", first10, "-d", md,
+                            "-o", t["ms"]]),
+        ("export-tracks", ["export-tracks", "-i", scene_path, "-m", first10, "-d", md,
+                           "-o", t["ts"]]),
+        ("retrieval-quality", ["retrieval-quality", "-i", scene_path, "-p", vp])])
+    said = {k: v.getvalue() for k, v in printed.items()}
+
+    def lines(p):
+        with open(p) as fh:
+            return [x for x in fh.read().split("\n") if x.strip()]
+
+    tr = json.loads(said["matches2tracks"])
+    tr_rows = [x.split() for x in lines(t["tracks.txt"])]
+    rq = json.loads(said["retrieval-quality"])
+    gt_pairs = {(min(a, b), max(a, b)) for vs in seen_by.values() for a in vs for b in vs if a != b}
+    vpairs = {(min(i, j), max(i, j)) for i, j in cli.load_pairs_file(vp)}
+    origin = np.asarray(parse_numbers(open(os.path.join(t["co"], "local_frame_origin.txt"))
+                                      .read()))
+    local = load_sfm_data(os.path.join(t["co"], "sfm_data_local.bin"))
+    checks = {
+        "frustum-filter": (int(said["frustum-filter"].split("/")[0]), len(lines(t["ff.txt"]))),
+        "list-pairs-V": (int(said["list-pairs-V"].split()[0]), len(lines(t["lpV.txt"]))),
+        "list-pairs-G": (int(said["list-pairs-G"].split()[0]), len(lines(t["lpG.txt"]))),
+        "convert-matches": (sum(len(m) for m in fmatch.values()),
+                            sum(len(m) for m in load_matches(t["m.txt"]).values())),
+        "matches2tracks": ((tr["n_observations"], tr["n_tracks"]),
+                           (len(tr_rows), len({r[0] for r in tr_rows}))),
+        "split-matches": (int(said["split-matches"].split()[0]),
+                          len(os.listdir(os.path.dirname(sm)))),
+        "export-keypoints": (int(said["export-keypoints"].split()[0]), len(os.listdir(t["kp"]))),
+        "export-matches": (int(said["export-matches"].split()[0]), len(os.listdir(t["ms"]))),
+        "export-tracks": (int(said["export-tracks"].split()[0]), len(os.listdir(t["ts"]))),
+        "retrieval-quality": ((rq["gt_pairs"], rq["putative_pairs"], rq["true_positive"]),
+                              (len(gt_pairs), len(vpairs), len(gt_pairs & vpairs))),
+        "change-origin": (0, int(np.abs(origin - scene.pose_C[min(
+            p for p in range(scene.n_poses) if scene.pose_valid[p])]).max() > 1e-9
+            or np.abs(local.pose_C + origin - scene.pose_C).max() > 1e-6)),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    rec.update(checks={k: v[0] for k, v in checks.items()})
+    log(f"[tools] small tools: {len(checks)} checks, printed counts "
+        f"{ {k: v[0] for k, v in checks.items()} }, {rec['s']:.2f} s")
+    if bad:
+        fail(f"[tools] printed counts differ from the files: {bad}")
+    if not os.path.getsize(t["adj.svg"]) or checks["export-matches"][0] != 10:
+        fail("[tools] convert-matches -a or export-matches wrote the wrong output")
+
+    # 8. bench-ann --source sift --sweep
+    rec, printed = step("bench_ann", [("bench-ann", ["bench-ann", "--source", "sift",
+                                                     "--sweep"])])
+    ann = json.loads(printed["bench-ann"].getvalue())
+    r16 = {e["n"]: e["recall_vs_bruteforce"] for e in ann["sweep"] if e["top_c"] == 16}
+    rec.update(n_query=ann["n_query"], bruteforce_s=ann["bruteforce"]["time_s"],
+               cascade_s=ann["cascade"]["time_s"], sweep=ann["sweep"])
+    log(f"[tools] bench-ann --source sift --sweep: {ann['n_query']} queries, brute force "
+        f"{ann['bruteforce']['time_s']:.4f} s, cascade {ann['cascade']['time_s']:.4f} s, recall "
+        f"at top_c 16 {r16}; sweep {ann['sweep']}; launches {rec['launches']}")
+    if not r16 or min(r16.values()) < 0.90:
+        fail(f"[tools] bench-ann recall at top_c 16 {r16} below 0.90")
+    if rec["launches"]["two_nn"] < 1:
+        fail("[tools] bench-ann did not launch K1")
+
+    # 9. the L-infinity solvers: 1,000 tracks in one call, 10 views' resections
+    t0 = time.perf_counter()
+    Kv = cm.K_matrix_np(np.asarray(scene.cameras.params))
+    P_all = {v: Kv[scene.view_intrinsic[v]] @ np.concatenate(
+        [scene.pose_R[scene.view_pose[v]],
+         (-scene.pose_R[scene.view_pose[v]] @ scene.pose_C[scene.view_pose[v]])[:, None]], 1)
+        for v in posed}
+    # an L-inf estimate is as good as the bound on its data's noise (the
+    # largest residual decides it): the observations the L2 scene
+    # reprojects within 0.5 px (its rmse is about 0.38 px)
+    r, info = reprojection_residuals(scene)
+    inl = np.zeros(scene.n_observations, bool)
+    inl[info["obs_idx"][np.linalg.norm(r, axis=1) <= 0.5]] = True
+    by_lm = {}
+    for i in np.nonzero(ok & inl)[0]:
+        if int(scene.obs_view[i]) in P_all:
+            by_lm.setdefault(int(scene.obs_landmark[i]), []).append(i)
+    # the 1,000 longest tracks: the widest baselines, where L2 and L-inf
+    # points differ by the noise alone
+    lms = sorted(by_lm, key=lambda l: (-len(by_lm[l]), l))[:1000]
+    vmax = max(len(by_lm[l]) for l in lms)
+    P = np.zeros((len(lms), vmax, 3, 4))
+    x = np.zeros((len(lms), vmax, 2))
+    valid = np.zeros((len(lms), vmax), bool)
+    for k, l in enumerate(lms):
+        for j, i in enumerate(by_lm[l]):
+            P[k, j], x[k, j], valid[k, j] = P_all[int(scene.obs_view[i])], scene.obs_x[i], True
+    # resection fixes P[2, 3] = 1, the world origin's depth, so the world
+    # origin moves to the landmarks' centroid, in front of every camera
+    ctr = scene.X[scene.X_valid].mean(0)
+    rv = posed[::max(1, len(posed) // 10)][:10]
+    per_view = [np.nonzero(ok & inl & (scene.obs_view == v))[0][:1000] for v in rv]
+    nmax = max(len(p) for p in per_view)
+    x2d, X3d = np.zeros((len(rv), nmax, 2)), np.zeros((len(rv), nmax, 3))
+    vv = np.zeros((len(rv), nmax), bool)
+    for k, idx in enumerate(per_view):
+        x2d[k, :len(idx)] = scene.obs_x[idx]
+        X3d[k, :len(idx)] = scene.X[scene.obs_landmark[idx]] - ctr
+        vv[k, :len(idx)] = True
+    res = {}
+    for d in (dev, "cpu"):
+        def T(a):
+            return torch.as_tensor(a, device=d)
+
+        if d == dev:
+            torch.cuda.synchronize()
+        tt = time.perf_counter()
+        Xl, gl = linfinity.triangulate_linf(T(P), T(x), T(valid))
+        Pr, gr = linfinity.resection_linf(T(x2d), T(X3d), T(vv))
+        Kr, Rr, tr_ = resection.krt_from_P(Pr)
+        Cr = -torch.einsum("vji,vj->vi", Rr, tr_) + T(ctr)
+        res[d] = [a.cpu().numpy() for a in (Xl, gl, Pr, gr, Cr)] + [time.perf_counter() - tt]
+    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+              for a, b in zip(res[dev][:5], res["cpu"][:5]))
+    # in the renderer's units: the eval alignment's scale s_e
+    X_err = s_e * float(np.linalg.norm(res[dev][0] - scene.X[lms], axis=1).max())
+    C_err = s_e * float(np.linalg.norm(res[dev][4] - np.stack(
+        [scene.pose_C[scene.view_pose[v]] for v in rv]), axis=1).max())
+    out["linf"] = dict(s=time.perf_counter() - t0, tracks=len(lms), track_views_max=vmax,
+                       views=len(rv), points_per_view_max=nmax, card_s=res[dev][5],
+                       cpu_s=res["cpu"][5], card_vs_cpu_rel=rel, X_err=X_err, C_err=C_err,
+                       gamma_tri_median=float(np.median(res[dev][1])),
+                       gamma_res_max=float(res[dev][3].max()))
+    log(f"[tools] L-inf: {len(lms)} tracks (up to {vmax} views) and {len(rv)} resections (up "
+        f"to {nmax} points) in {res[dev][5]:.2f} s on the card, {res['cpu'][5]:.2f} s on the "
+        f"CPU; card vs CPU max relative difference {rel:.3g}; points within {X_err:.5f} and "
+        f"centres within {C_err:.5f} of the L2 scene (the renderer's units); median "
+        f"triangulation gamma "
+        f"{out['linf']['gamma_tri_median']:.4f} px")
+    if rel > 1e-6:
+        fail(f"[tools] the L-inf solvers on the card differ from the CPU by {rel:.3g} relative")
+    if X_err > 0.01 or C_err > 0.006:
+        fail(f"[tools] L-inf points {X_err:.5f} (> 0.01) or centres {C_err:.5f} (> 0.006) "
+             "from the L2 scene")
+
+    # 10. --profile DIR on refine, in a process of its own as a user runs it
+    #     (a large profiler session leaves later ones in the same process
+    #     short of their first events: the measure phase's come after this)
+    pdir = os.path.join(tw, "profile")
+    t1 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "openmvg_torch.cli", "--profile", pdir, "refine",
+                        "-i", scene_path, "-o", os.path.join(tw, "prof.json"), "-n", "3"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    rec = out["profile"] = dict(s=time.perf_counter() - t1, rc=r.returncode)
+    traces = [os.path.join(pdir, f) for f in os.listdir(pdir)] if os.path.isdir(pdir) else []
+    text = open(traces[0]).read() if traces else ""
+    names = dict(k2=("seg_sum_kernel" in text or "camera_sums_kernel" in text),
+                 stage="bundle_adjustment" in text)
+    rec.update(trace_bytes=len(text), names=names)
+    log(f"[tools] --profile: {len(traces)} trace(s), {len(text)} bytes, names {names}")
+    if r.returncode != 0 or len(traces) != 1 or not all(names.values()):
+        fail(f"[tools] --profile wrote {len(traces)} trace(s) naming {names}")
+
+    out["launches_by_step"] = launches_by_step   # the profile step runs in its own process
+    out["s"] = sum(r["s"] for r in out.values() if isinstance(r, dict) and "s" in r)
+    return out
+
+
 def final_problem(scene):
     """The final bundle adjustment's problem, rebuilt from the scene it
     wrote (the polish after it changes no observation)."""
@@ -2321,6 +2864,7 @@ def main():
         grun = phase_global(mods, run, args.views)
         strun = phase_stellar(mods, run, args.views)
         mrun = phase_matchers(mods, run, srun, args.views)
+        trun = phase_tools(mods, run, srun, args.views)
         c3_views = min(args.views, 24)
         log(f"[camera3] CUT: {c3_views} views of {args.size}^2, "
             f"{c3_views * (c3_views - 1) // 2} exhaustive pairs (the realistic scale is "
@@ -2338,7 +2882,8 @@ def main():
     def new_paths(name):
         return {"launches_v2": v2run["launches"][name],
                 "launches_stellar": strun["launches"][name],
-                "launches_camera3": c3run["launches"][name]}
+                "launches_camera3": c3run["launches"][name],
+                "launches_tools": {k: v[name] for k, v in trun["launches_by_step"].items()}}
 
     def evals(r):
         return {k: v for k, v in r["stats"].items() if not isinstance(v, dict)}
@@ -2402,7 +2947,8 @@ def main():
         "matchers": {k: v for k, v in mrun.items() if isinstance(v, dict)},
         "describers": {m: {k: v for k, v in r.items() if k != "k1_at_shape"}
                        for m, r in drun.items()},
-        "spherical": sprun, "cubify": curun, "vo": vorun}
+        "spherical": sprun, "cubify": curun, "vo": vorun,
+        "tools": {k: v for k, v in trun.items() if k != "launches_by_step"}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

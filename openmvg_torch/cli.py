@@ -24,6 +24,22 @@ one-command pipeline and eval).
   vo        software/VO                    (FAST + KLT monocular odometry)
   pipeline  SfM_SequentialPipeline.py /    (init .. color in one command; GLOBAL
             SfM_GlobalPipeline.py           filters with e)
+  export    software/SfM/export/*          (nvm colmap baf bundler pmvs mve openmvs
+                                            agisoft meshlab mvstexturing cmpmvs
+                                            frustums webgl undistorted json bin ply)
+  localize  main_SfM_Localization.cpp      (query images in a reconstruction)
+  cluster   main_ComputeClusters.cpp       (k-means of the camera centres)
+  refine    Bundle_Adjustment_Ceres        (standalone BA of a scene; one card)
+  geo-register registration_to_exif_gps_position.cpp (LMedS similarity)
+  harmonize software/colorHarmonize        (per-image gain and offset; PNG)
+  frustum-filter, change-origin, list-pairs, convert-matches, matches2tracks,
+  split-matches, export-keypoints, export-matches, export-tracks,
+  retrieval-quality, bench-ann: the small tools of software/SfM and
+  software/Localization, as in the reference
+
+--profile DIR (before the subcommand), or OMT_PROFILE_DIR, records the
+command under torch.profiler and writes a Chrome trace into DIR.  A
+missing input file prints "error: file not found: <name>" and returns 1.
 
 Flags, defaults and printed summaries are the reference's, plus --device:
 every stage runs on `cuda` unless `--device cpu` is given, and raises when
@@ -207,11 +223,15 @@ def cmd_pairs(args):
     n = scene.n_views
     pairs = (contiguous_pairs(n, args.contiguous_count)
              if args.pair_mode.upper() == "CONTIGUOUS" else exhaustive_pairs(n))
-    with open(args.output_file, "w") as f:
-        for i, j in pairs:
-            f.write(f"{i} {j}\n")
+    _write_pairs(args.output_file, pairs)
     print(f"{len(pairs)} pairs")
     return 0
+
+
+def _write_pairs(path, pairs):
+    with open(path, "w") as f:
+        for i, j in pairs:
+            f.write(f"{i} {j}\n")
 
 
 def load_pairs_file(path):
@@ -460,9 +480,7 @@ def cmd_vlad(args):
                                   k=args.codebook_size, device=args.device)
     vlads = vlad.vlad_embeddings(descs, centers, device=args.device).cpu().numpy()
     pairs = vlad.retrieve_pairs(vlads, top_k=args.top_k)
-    with open(args.output_file, "w") as f:
-        for i, j in pairs:
-            f.write(f"{i} {j}\n")
+    _write_pairs(args.output_file, pairs)
     print(f"{len(pairs)} retrieval pairs")
     return 0
 
@@ -592,9 +610,533 @@ def cmd_pipeline(args):
     return 0
 
 
+def cmd_export(args):
+    """The scene in one of the formats of software/SfM/export/."""
+    from openmvg_torch.io import exporters
+    from openmvg_torch.io.sfm_data import save_sfm_data
+
+    scene = _load_scene(args.input_file)
+    fmt = args.format.lower()
+    writers = dict(nvm=exporters.export_nvm, colmap=exporters.export_colmap,
+                   baf=exporters.export_baf, bundler=exporters.export_bundler,
+                   pmvs=exporters.export_pmvs, mve=exporters.export_mve,
+                   openmvs=exporters.export_openmvs, agisoft=exporters.export_agisoft,
+                   meshlab=exporters.export_meshlab,
+                   mvstexturing=exporters.export_mvstexturing,
+                   cmpmvs=exporters.export_cmpmvs, frustums=exporters.export_frustums_ply,
+                   webgl=exporters.export_webgl)
+    if fmt in ("json", "bin"):
+        save_sfm_data(scene, args.output_file)
+    elif fmt == "ply":
+        from openmvg_torch.io.ply import save_scene_ply
+
+        save_scene_ply(scene, args.output_file)
+    elif fmt == "undistorted":
+        exporters.export_undistorted_images(scene, args.output_file, device=args.device)
+    elif fmt in writers:
+        writers[fmt](scene, args.output_file)
+    else:
+        print(f"unknown format {fmt}", file=sys.stderr)
+        return 1
+    print(f"exported {fmt}")
+    return 0
+
+
+def cmd_localize(args):
+    """main_SfM_Localization: each query image's SIFT features matched
+    against the scene's landmark database and its pose found by AC-RANSAC
+    resection and a pose-only BA, on the device.  The scene's first view's
+    intrinsic (model and distortion included) is the queries' camera."""
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.sfm import localization as loc
+    from openmvg_torch.sfm.describer import describe_image
+
+    scene = _load_scene(args.input_file)
+    _, descs = _load_features_for_scene(scene, args.match_dir)
+    db = loc.build_landmark_database(scene, descs)
+    iid = int(scene.view_intrinsic[0])
+    prm = np.asarray(scene.cameras.params)[iid]
+    kind = int(scene.cameras.kind[iid])
+    K = cm.K_matrix_np(prm)
+    w, h = float(scene.cameras.width[iid]), float(scene.cameras.height[iid])
+    t0, n_found = time.time(), 0
+    for q in args.query_images:
+        qf, qd = describe_image(read_image(q, grayscale=True), device=args.device)
+        res = loc.localize_image(db, qf, qd, K, w, h, kind=kind,
+                                 disto_params=prm[3:cm.N_PARAMS[kind]], device=args.device)
+        if res.found:
+            n_found += 1
+            print(f"{q}: localized with {res.n_inliers} inliers, C = {res.C.tolist()}")
+        else:
+            print(f"{q}: localization FAILED")
+    print(f"localized {n_found}/{len(args.query_images)} queries in {time.time() - t0:.1f}s")
+    return 0
+
+
+def cmd_cluster(args):
+    """main_ComputeClusters: the posed views split into overlapping
+    clusters, one sub-scene file each (k-means on the device)."""
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm.clustering import cluster_views, scene_for_views
+
+    scene = _load_scene(args.input_file)
+    clusters = cluster_views(scene, args.n_clusters, device=args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for k, views in enumerate(clusters):
+        save_sfm_data(scene_for_views(scene, views),
+                      os.path.join(args.output_dir, f"sfm_data_cluster_{k}.json"))
+        print(f"cluster {k}: {len(views)} views")
+    return 0
+
+
+def cmd_frustum_filter(args):
+    """main_FrustumFiltering.cpp: the posed pairs whose frusta intersect."""
+    from openmvg_torch.geometry.frustum import frustum_filter_pairs
+    from openmvg_torch.utils.graph import exhaustive_pairs
+
+    scene = _load_scene(args.input_file)
+    posed = set(scene.valid_view_poses().tolist())
+    cand = [(i, j) for (i, j) in exhaustive_pairs(scene.n_views) if i in posed and j in posed]
+    pairs = frustum_filter_pairs(scene, cand, z_near=args.z_near, z_far=args.z_far)
+    _write_pairs(args.output_file, pairs)
+    print(f"{len(pairs)}/{len(cand)} pairs kept")
+    return 0
+
+
+def cmd_change_origin(args):
+    """main_ChangeLocalOrigin.cpp: the scene translated to a local origin
+    (the first posed camera with -f, else -l 'x;y;z')."""
+    from openmvg_torch.io.sfm_data import save_sfm_data
+
+    scene = _load_scene(args.input_file)
+    if args.first_frame_origin:
+        posed = [p for p in range(scene.n_poses) if scene.pose_valid[p]]
+        if not posed:
+            print("scene has no poses", file=sys.stderr)
+            return 1
+        origin = scene.pose_C[posed[0]].copy()
+    else:
+        vals = args.local_frame_origin.split(";")
+        if len(vals) != 3:
+            print("origin must be 'x;y;z'", file=sys.stderr)
+            return 1
+        origin = np.array([float(v) for v in vals])
+    scene.pose_C = scene.pose_C - origin
+    if len(scene.X):
+        scene.X = scene.X - origin
+    if len(scene.cp_X):
+        scene.cp_X = scene.cp_X - origin
+    if scene.prior_center is not None:
+        scene.prior_center = scene.prior_center - origin
+    os.makedirs(args.output_directory, exist_ok=True)
+    save_sfm_data(scene, os.path.join(args.output_directory, "sfm_data_local.bin"))
+    with open(os.path.join(args.output_directory, "local_frame_origin.txt"), "w") as f:
+        f.write(f"{origin[0]} {origin[1]} {origin[2]}\n")
+    print(f"origin {origin} subtracted")
+    return 0
+
+
+def cmd_list_pairs(args):
+    """main_ListMatchingPairs.cpp: exhaustive, video (-V, -d) or GPS (-G,
+    the -n nearest prior centres) pairs."""
+    from openmvg_torch.utils.graph import contiguous_pairs, exhaustive_pairs
+
+    scene = _load_scene(args.input_file)
+    n = scene.n_views
+    if args.video_mode:
+        pairs = contiguous_pairs(n, args.video_distance)
+    elif args.gps_mode:
+        centers = np.full((n, 3), np.nan)
+        if scene.prior_center is not None:
+            centers = np.asarray(scene.prior_center, float)
+        pairs = []
+        for i in range(n):
+            if np.any(np.isnan(centers[i])):
+                continue
+            near = np.argsort(np.linalg.norm(centers - centers[i], axis=1))
+            kept = [int(j) for j in near
+                    if j != i and not np.any(np.isnan(centers[j]))][:args.gps_neighbor]
+            pairs += [(min(i, j), max(i, j)) for j in kept]
+        pairs = sorted(set(pairs))
+    else:
+        pairs = exhaustive_pairs(n)
+    _write_pairs(args.output_file, pairs)
+    print(f"{len(pairs)} pairs")
+    return 0
+
+
+def cmd_convert_matches(args):
+    """main_ConvertMatches.cpp: matches .bin <-> .txt by extension; -a the
+    adjacency matrix as SVG (ui/ImageGraphViewer)."""
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+
+    matches = load_matches(args.input_file)
+    save_matches(matches, args.output_file)
+    if args.adjacency_svg:
+        from openmvg_torch.utils.report import svg_adjacency_matrix
+
+        n = 1 + max((max(i, j) for (i, j) in matches), default=0)
+        svg_adjacency_matrix(n, matches, args.adjacency_svg)
+        print(f"adjacency matrix -> {args.adjacency_svg}")
+    print(f"converted {args.input_file} -> {args.output_file}")
+    return 0
+
+
+def cmd_matches_to_tracks(args):
+    """main_MatchesToTracks.cpp: matches fused into tracks; prints their
+    counts and writes 'track view feature' rows with -o."""
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.sfm.tracks import build_tracks
+
+    tracks = build_tracks(load_matches(args.input_file))
+    lengths = np.bincount(tracks.track_id)
+    stats = {
+        "n_tracks": int(tracks.track_id.max()) + 1 if len(tracks.track_id) else 0,
+        "n_observations": len(tracks.track_id),
+        "mean_length": float(lengths[lengths > 0].mean()) if len(lengths) else 0,
+    }
+    if args.output_file:
+        with open(args.output_file, "w") as f:
+            for t, v, ft in zip(tracks.track_id, tracks.view_id, tracks.feat_id):
+                f.write(f"{t} {v} {ft}\n")
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_split_matches(args):
+    """main_SplitMatchFileIntoMatchFiles.cpp: one matches file per
+    connected component of at least -n views (<out>_<k><ext>)."""
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+    from openmvg_torch.sfm.clustering import split_matches_by_component
+
+    parts = split_matches_by_component(load_matches(args.input_file), args.min_nodes)
+    base, ext = os.path.splitext(args.output_file)
+    for k, sub in enumerate(parts):
+        save_matches(sub, f"{base}_{k}{ext}")
+    print(f"{len(parts)} match files written")
+    return 0
+
+
+def cmd_bench_ann(args):
+    """main_benchANN.cpp: recall and time of the cascade-hashing matcher
+    against exact brute force (K1 on the card).  --source synthetic: noisy
+    copies of uniform descriptors (recall also against the planted
+    identity); --source sift: SIFT of a textured image and of a rotated,
+    scaled warp of it.  --sweep: the curve over n in (1024, 4096, 16384)
+    and top_c in (8, 16, 32)."""
+    from openmvg_torch.ops import matching as mt
+
+    dev = args.device
+    rng = np.random.default_rng(0)
+    n, d = args.n_descriptors, 128
+    if args.source == "sift":
+        from openmvg_torch.ops import image_ops
+        from openmvg_torch.sfm.describer import describe_image
+
+        img = np.zeros((512, 512), np.float32)
+        for period in (4, 8, 16, 32):
+            coarse = rng.random((512 // period + 2, 512 // period + 2))
+            img += np.kron(coarse, np.ones((period, period)))[:512, :512]
+        img = ((img - img.min()) / np.ptp(img)).astype(np.float32)
+        a = np.radians(10.0)
+        H = np.eye(3)
+        H[:2, :2] = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]) * 1.1
+        H[:2, 2] = 256 - H[:2, :2] @ [256, 256]
+        warped = image_ops.warp_homography(torch.as_tensor(img, device=dev), H).cpu().numpy()
+        _, base = describe_image(img, preset="HIGH", max_features=n, device=dev)
+        _, query = describe_image(warped.astype(np.float32), preset="HIGH", max_features=n,
+                                  device=dev)
+        base = base.astype(np.float32)
+        query = query.astype(np.float32)
+        n = len(query)
+    else:
+        base = rng.integers(0, 255, (n, d)).astype(np.float32)
+        noise = rng.normal(0, args.noise, (n, d)).astype(np.float32)
+        query = np.clip(base + noise, 0, 255)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def to_set(res):
+        ok = res.mask.cpu().numpy()
+        return {(int(a), int(b)) for a, b in zip(res.idx_a.cpu().numpy()[ok],
+                                                 res.idx_b.cpu().numpy()[ok])}
+
+    t0 = time.time()
+    bf_set = to_set(mt.match_brute_force(t(query), t(base), ratio=args.ratio))
+    t_bf = time.time() - t0
+    proj = mt.make_hash_projections(0, device=dev)
+    t0 = time.time()
+    ch_set = to_set(mt.match_cascade(t(query), t(base), proj, t(base.mean(0)),
+                                     ratio=args.ratio))
+    t_ch = time.time() - t0
+    out = {
+        "source": args.source,
+        "n_query": int(n),
+        "bruteforce": {"time_s": t_bf, "n": len(bf_set)},
+        "cascade": {"time_s": t_ch, "n": len(ch_set),
+                    "recall_vs_bruteforce": len(bf_set & ch_set) / max(len(bf_set), 1)},
+    }
+    if args.source != "sift":
+        gt = {(i, i) for i in range(n)}
+        out["bruteforce"]["recall"] = len(bf_set & gt) / n
+        out["cascade"]["recall"] = len(ch_set & gt) / n
+    if args.sweep:
+        sweep = []
+        for n_sw in (1024, 4096, 16384):
+            if args.source == "sift":
+                if n_sw > len(base):
+                    continue
+                b_sw, q_sw = base[:n_sw], query[:n_sw]
+            else:
+                b_sw = rng.integers(0, 255, (n_sw, d)).astype(np.float32)
+                q_sw = np.clip(b_sw + rng.normal(0, args.noise, (n_sw, d)),
+                               0, 255).astype(np.float32)
+            bf = to_set(mt.match_brute_force(t(q_sw), t(b_sw), ratio=args.ratio))
+            for top_c in (8, 16, 32):
+                t0 = time.time()
+                ch = to_set(mt.match_cascade(t(q_sw), t(b_sw), proj, t(b_sw.mean(0)),
+                                             ratio=args.ratio, top_c=top_c))
+                sweep.append({"n": int(n_sw), "top_c": int(top_c),
+                              "recall_vs_bruteforce": len(bf & ch) / max(len(bf), 1),
+                              "time_s": round(time.time() - t0, 4)})
+        out["sweep"] = sweep
+        out["backend"] = dev.type
+        if args.sweep_out:
+            with open(args.sweep_out, "w") as f:
+                json.dump(out, f, indent=1)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def cmd_refine(args):
+    """Standalone bundle adjustment of an existing reconstruction on one
+    card (Schur-CG LM, camera sums on K2; OMT_FUSED_SMATVEC=1 takes the
+    CG matvec through K3)."""
+    from openmvg_torch.io.ply import save_scene_ply
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm.scene import rmse
+    from openmvg_torch.utils.logging import stage
+
+    if args.devices > 1:
+        raise ValueError(
+            "refine -d N > 1 shards the bundle adjustment over several cards; it comes "
+            "with the multi-GPU slice of the port (ROADMAP queue 1, item 9)")
+    scene = _load_scene(args.input_file)
+    refine = ba.ADJUST_ALL if args.refine_intrinsic_config == "ADJUST_ALL" else ba.ADJUST_NONE
+    prob, maps = ba.problem_from_scene(scene, refine_intrinsics=refine, device=args.device)
+    t0 = time.time()
+    with stage("bundle_adjustment"):
+        prob, cost, _ = ba.adjust(prob, ba.BAConfig(max_iterations=args.iterations))
+    print(f"BA: cost={cost:.4f}")
+    ba.scene_from_problem(scene, prob, maps)
+    os.makedirs(os.path.dirname(os.path.abspath(args.output_file)), exist_ok=True)
+    save_sfm_data(scene, args.output_file)
+    if args.ply:
+        save_scene_ply(scene, args.ply)
+    print(f"refined in {time.time() - t0:.1f}s: rmse={rmse(scene):.3f}px")
+    return 0
+
+
+def cmd_geo_register(args):
+    """Registration onto GPS positions (registration_to_exif_gps_position.cpp):
+    the scene's priors (--use_priors) or each view's EXIF GPS (PIL) in
+    ECEF, an LMedS similarity fitted on the device, the scene transformed."""
+    from openmvg_torch.io.ply import save_scene_ply
+    from openmvg_torch.io.sfm_data import save_sfm_data
+    from openmvg_torch.sfm import gps_registration as gr
+
+    scene = _load_scene(args.input_file)
+    if args.use_priors:
+        scene, sim = gr.register_to_gps(scene, use_priors_from_scene=True, device=args.device)
+    else:
+        from openmvg_torch.geometry.geodesy import lla_to_ecef
+        from openmvg_torch.io.image import read_exif
+
+        views, positions = [], []
+        for v in range(scene.n_views):
+            gps = read_exif(os.path.join(scene.root_path, scene.view_filename[v])).get("gps")
+            if gps and "lat" in gps and "lon" in gps:
+                views.append(v)
+                positions.append(np.asarray(lla_to_ecef(gps["lat"], gps["lon"],
+                                                        gps.get("alt", 0.0))))
+        if len(views) < 3:
+            print(f"only {len(views)} views with EXIF GPS (need >= 3)", file=sys.stderr)
+            return 1
+        pids = scene.view_pose[np.asarray(views)]
+        ok = (pids >= 0) & scene.pose_valid[np.clip(pids, 0, None)]
+        if int(ok.sum()) < 3:
+            print(f"only {int(ok.sum())} GPS views have reconstructed poses (need >= 3)",
+                  file=sys.stderr)
+            return 1
+        sim = gr.fit_similarity_lmeds(scene.pose_C[pids[ok]], np.asarray(positions)[ok],
+                                      device=args.device)
+        scene = gr.apply_similarity_to_scene(scene, sim)
+    save_sfm_data(scene, args.output_file)
+    if args.ply:
+        save_scene_ply(scene, args.ply)
+    print(f"registered (scale={float(np.asarray(sim.scale)):.6g}) -> {args.output_file}")
+    return 0
+
+
+def cmd_export_keypoints(args):
+    """export/main_exportKeypoints.cpp: one keypoint SVG per view."""
+    from openmvg_torch.utils.report import svg_features
+
+    scene = _load_scene(args.input_file)
+    feats, _ = _load_features_for_scene(scene, args.matchdir)
+    os.makedirs(args.outputDirectory, exist_ok=True)
+    for v in range(scene.n_views):
+        stem = os.path.splitext(os.path.basename(scene.view_filename[v]))[0]
+        svg_features(tuple(scene.view_wh[v]), feats[v],
+                     os.path.join(args.outputDirectory, stem + ".svg"))
+    print(f"{scene.n_views} keypoint SVGs -> {args.outputDirectory}")
+    return 0
+
+
+def cmd_export_matches(args):
+    """export/main_exportMatches.cpp: one side-by-side match SVG per pair."""
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.utils.report import svg_matches
+
+    scene = _load_scene(args.input_file)
+    feats, _ = _load_features_for_scene(scene, args.matchdir or os.path.dirname(args.matches))
+    matches = load_matches(args.matches)
+    os.makedirs(args.outputDirectory, exist_ok=True)
+    for (i, j), m in sorted(matches.items()):
+        svg_matches(tuple(scene.view_wh[i]), tuple(scene.view_wh[j]), feats[i], feats[j],
+                    np.asarray(m), os.path.join(args.outputDirectory, f"{i:05d}_{j:05d}.svg"))
+    print(f"{len(matches)} match SVGs -> {args.outputDirectory}")
+    return 0
+
+
+def cmd_export_tracks(args):
+    """export/main_exportTracks.cpp: one SVG per pair of the matches that
+    fuse into one track, coloured by track."""
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.sfm.tracks import build_tracks
+    from openmvg_torch.utils.report import svg_tracks
+
+    scene = _load_scene(args.input_file)
+    feats, _ = _load_features_for_scene(scene, args.matchdir or os.path.dirname(args.matches))
+    matches = load_matches(args.matches)
+    tracks = build_tracks(matches, min_length=2)
+    by_view = {}
+    for tid, v, f in zip(tracks.track_id, tracks.view_id, tracks.feat_id):
+        by_view.setdefault(int(v), {})[int(f)] = int(tid)
+    os.makedirs(args.outputDirectory, exist_ok=True)
+    n_svg = 0
+    for (i, j), m in sorted(matches.items()):
+        rows = []
+        for fa, fb in np.asarray(m):
+            tid = by_view.get(i, {}).get(int(fa))
+            if tid is not None and by_view.get(j, {}).get(int(fb)) == tid:
+                rows.append((int(fa), int(fb)))
+        if not rows:
+            continue
+        svg_tracks(tuple(scene.view_wh[i]), tuple(scene.view_wh[j]), feats[i], feats[j], rows,
+                   os.path.join(args.outputDirectory, f"{i:05d}_{j:05d}.svg"))
+        n_svg += 1
+    print(f"{n_svg} track SVGs ({tracks.n_tracks} tracks) -> {args.outputDirectory}")
+    return 0
+
+
+def cmd_harmonize(args):
+    """software/colorHarmonize: per image and channel a gain and offset
+    such that the colour quantiles at matched keypoints agree over every
+    matched pair (IRLS-L1 on the reference's 10-quantile constraints), the
+    reference view (-r, or the best-connected) pinned to (1, 0); the
+    harmonised copies are written through the port's image writer (PNG
+    without PIL)."""
+    from openmvg_torch.io.image import read_image, write_image
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.sfm import color_harmonization as ch
+
+    scene = _load_scene(args.input_file)
+    feats, _ = _load_features_for_scene(scene, args.matchdir or os.path.dirname(args.matches))
+    matches = load_matches(args.matches)
+    if not matches:
+        print("no matches", file=sys.stderr)
+        return 1
+    images = {}
+
+    def img_of(v):
+        if v not in images:
+            im = np.asarray(read_image(os.path.join(scene.root_path, scene.view_filename[v])),
+                            np.float64)
+            if im.ndim == 2:
+                im = im[..., None].repeat(3, -1)
+            images[v] = im / 255.0
+        return images[v]
+
+    def samples(v, rows):
+        im = img_of(v)
+        h, w = im.shape[:2]
+        xy = feats[v][rows, :2]
+        return im[np.clip(xy[:, 1].astype(int), 0, h - 1), np.clip(xy[:, 0].astype(int), 0, w - 1)]
+
+    n = scene.n_views
+    counts = np.zeros(n)
+    for (i, j), m in matches.items():
+        counts[i] += len(m)
+        counts[j] += len(m)
+    ref = int(np.argmax(counts)) if args.reference < 0 else args.reference
+    if not 0 <= ref < n:
+        print(f"--reference view id {ref} out of range [0, {n})", file=sys.stderr)
+        return 1
+    gains, offsets = np.ones((n, 3)), np.zeros((n, 3))
+    for c in range(3):
+        pair_data = {(i, j): ch.pair_quantiles(samples(i, m[:, 0])[:, c], samples(j, m[:, 1])[:, c])
+                     for (i, j), m in matches.items() if len(m) >= 4}
+        gains[:, c], offsets[:, c] = ch.solve_gain_offset(n, pair_data, ref_image=ref)
+    os.makedirs(args.outputDirectory, exist_ok=True)
+    for v in range(n):
+        im = np.clip(img_of(v) * gains[v] + offsets[v], 0.0, 1.0)
+        write_image(os.path.join(args.outputDirectory, os.path.basename(scene.view_filename[v])),
+                    (im * 255.0 + 0.5).astype(np.uint8))
+        print(f"  {scene.view_filename[v]}: gain={gains[v].round(3)} "
+              f"offset={offsets[v].round(3)}")
+    print(f"harmonized {n} images (reference view {ref}) -> {args.outputDirectory}")
+    return 0
+
+
+def cmd_retrieval_quality(args):
+    """main_MatchingRetrievalQuality.cpp: recall and precision of a pair
+    list against ground-truth pairs (a matches file, or the scene's
+    landmark co-visibility)."""
+    gt_pairs = set()
+    if args.gt_matches:
+        from openmvg_torch.io.matches_io import load_matches
+
+        gt_pairs = {(min(i, j), max(i, j)) for (i, j) in load_matches(args.gt_matches)}
+    else:
+        scene = _load_scene(args.input_file)
+        ok = scene.obs_valid & scene.X_valid[scene.obs_landmark]
+        by_lm = {}
+        for idx in np.nonzero(ok)[0]:
+            by_lm.setdefault(int(scene.obs_landmark[idx]), set()).add(int(scene.obs_view[idx]))
+        for views in by_lm.values():
+            vs = sorted(views)
+            gt_pairs.update((vs[a], vs[b]) for a in range(len(vs)) for b in range(a + 1, len(vs)))
+    putative = {(min(i, j), max(i, j)) for i, j in load_pairs_file(args.pair_file)}
+    tp = len(gt_pairs & putative)
+    fn = len(gt_pairs) - tp
+    fp = len(putative) - tp
+    print(json.dumps({
+        "gt_pairs": len(gt_pairs), "putative_pairs": len(putative),
+        "true_positive": tp, "false_negative": fn, "false_positive": fp,
+        "recall": tp / max(tp + fn, 1), "precision": tp / max(tp + fp, 1),
+    }, indent=1))
+    return 0
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="openmvg_torch",
                                  description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default="",
+                    help="directory for a torch.profiler trace of the command")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def stage(name, fn):
@@ -729,13 +1271,122 @@ def build_parser():
     p.add_argument("-m", "--describerMethod", default="SIFT")
     p.add_argument("-p", "--describerPreset", default="NORMAL")
     p.add_argument("-r", "--ratio", type=float, default=0.8)
+
+    p = stage("export", cmd_export)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-f", "--format", required=True)
+
+    p = stage("localize", cmd_localize)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--match_dir", required=True)
+    p.add_argument("-q", "--query_images", nargs="+", required=True)
+
+    p = stage("cluster", cmd_cluster)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_dir", required=True)
+    p.add_argument("-n", "--n_clusters", type=int, default=2)
+
+    p = stage("frustum-filter", cmd_frustum_filter)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-n", "--z_near", type=float, default=0.01)
+    p.add_argument("-f", "--z_far", type=float, default=100.0)
+
+    p = stage("change-origin", cmd_change_origin)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_directory", required=True)
+    p.add_argument("-l", "--local_frame_origin", default="")
+    p.add_argument("-f", "--first_frame_origin", action="store_true")
+
+    p = stage("list-pairs", cmd_list_pairs)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-V", "--video_mode", action="store_true")
+    p.add_argument("-G", "--gps_mode", action="store_true")
+    p.add_argument("-d", "--video_distance", type=int, default=1)
+    p.add_argument("-n", "--gps_neighbor", type=int, default=5)
+
+    p = stage("convert-matches", cmd_convert_matches)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-a", "--adjacency_svg", default=None)
+
+    p = stage("matches2tracks", cmd_matches_to_tracks)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", default="")
+
+    p = stage("split-matches", cmd_split_matches)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-n", "--min_nodes", type=int, default=3)
+
+    p = stage("bench-ann", cmd_bench_ann)
+    p.add_argument("-n", "--n_descriptors", type=int, default=4096)
+    p.add_argument("-r", "--ratio", type=float, default=0.8)
+    p.add_argument("--noise", type=float, default=4.0)
+    p.add_argument("--source", choices=["synthetic", "sift"], default="synthetic")
+    p.add_argument("--sweep", action="store_true",
+                   help="record the recall curve over N x top_c")
+    p.add_argument("--sweep_out", default=None, help="write the sweep JSON here")
+
+    p = stage("refine", cmd_refine)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("-n", "--iterations", type=int, default=30)
+    p.add_argument("-d", "--devices", type=int, default=1)
+    p.add_argument("-f", "--refine_intrinsic_config", default="ADJUST_ALL")
+    p.add_argument("--ply", default="")
+
+    p = stage("geo-register", cmd_geo_register)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-o", "--output_file", required=True)
+    p.add_argument("--use_priors", action="store_true",
+                   help="use the GPS priors stored in the scene instead of EXIF")
+    p.add_argument("--ply", default=None)
+
+    p = stage("export-keypoints", cmd_export_keypoints)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-d", "--matchdir", required=True)
+    p.add_argument("-o", "--outputDirectory", required=True)
+
+    for name, fn in (("export-matches", cmd_export_matches),
+                     ("export-tracks", cmd_export_tracks)):
+        p = stage(name, fn)
+        p.add_argument("-i", "--input_file", required=True)
+        p.add_argument("-m", "--matches", required=True)
+        p.add_argument("-d", "--matchdir", default=None)
+        p.add_argument("-o", "--outputDirectory", required=True)
+
+    p = stage("harmonize", cmd_harmonize)
+    p.add_argument("-i", "--input_file", required=True)
+    p.add_argument("-m", "--matches", required=True)
+    p.add_argument("-d", "--matchdir", default=None)
+    p.add_argument("-o", "--outputDirectory", required=True)
+    p.add_argument("-r", "--reference", type=int, default=-1,
+                   help="reference view id (-1 = best-connected)")
+
+    p = stage("retrieval-quality", cmd_retrieval_quality)
+    p.add_argument("-i", "--input_file", default="")
+    p.add_argument("-p", "--pair_file", required=True)
+    p.add_argument("-g", "--gt_matches", default="")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     args.device = resolve_device(args.device)
-    return args.fn(args)
+    profile_dir = args.profile or os.environ.get("OMT_PROFILE_DIR")
+    try:
+        if profile_dir and not torch.autograd._profiler_enabled():
+            from openmvg_torch.utils.logging import Profiler
+
+            with Profiler(profile_dir):
+                return args.fn(args)
+        return args.fn(args)
+    except FileNotFoundError as e:
+        print(f"error: file not found: {e.filename or e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -41,3 +41,9 @@ def find_rts(x, y, weights=None):
     scale = (D * S).sum(-1) / torch.clamp(var_x, min=1e-12)
     t = mu_y - scale[..., None] * torch.einsum("...ij,...j->...i", R, mu_x)
     return Similarity(scale=scale, R=R, t=t)
+
+
+def align_poses_rts(centers_est, centers_gt):
+    """Similarity aligning estimated camera centres to ground truth (the
+    evalQuality protocol, tools_precisionEvaluationToGt.hpp:21-60)."""
+    return find_rts(centers_est, centers_gt)

@@ -4,6 +4,25 @@ openmvg_tpu/ops/conditioning.py; multiview/conditioning.cpp)."""
 import torch
 
 
+def preconditioner_from_points(points, mask=None):
+    """(..., N, 2) -> (..., 3, 3) variance normaliser (conditioning.cpp
+    PreconditionerFromPoints): centroid to the origin, each axis scaled to
+    variance 2; an axis of variance below 1e-8 is left as it is."""
+    w = (torch.ones(points.shape[:-1], dtype=points.dtype, device=points.device)
+         if mask is None else mask.to(points.dtype))
+    cnt = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+    mean = (points * w[..., None]).sum(-2) / cnt
+    var = (((points - mean[..., None, :]) ** 2) * w[..., None]).sum(-2) / cnt
+    ok = var >= 1e-8
+    factor = torch.where(ok, torch.sqrt(2.0 / torch.clamp(var, min=1e-8)),
+                         torch.ones_like(var))
+    mean = torch.where(ok, mean, torch.ones_like(mean))
+    z = torch.zeros_like(factor[..., 0])
+    return torch.stack([torch.stack([factor[..., 0], z, -factor[..., 0] * mean[..., 0]], -1),
+                        torch.stack([z, factor[..., 1], -factor[..., 1] * mean[..., 1]], -1),
+                        torch.stack([z, z, torch.ones_like(z)], -1)], -2)
+
+
 def preconditioner_from_size(width, height, dtype=torch.float64, device=None):
     """Image-size normaliser (conditioning.cpp:55-64); width/height scalars
     or (B,) tensors -> (..., 3, 3)."""

@@ -128,3 +128,23 @@ def point_line_error_sq(F, x1, x2):
     den = l[..., 0] ** 2 + l[..., 1] ** 2
     err = num * num / torch.clamp(den, min=1e-30)
     return torch.where(norm[..., 0] > 1e-20, err, torch.full_like(err, float("inf")))
+
+
+def _epi_lines(F, x1):
+    """F @ x1_h: (..., 3, 3) x (..., N, 2) -> (..., N, 3)."""
+    return x1 @ F[..., :, :2].transpose(-1, -2) + F[..., None, :, 2]
+
+
+def symmetric_epipolar_error_sq(F, x1, x2):
+    """Sum of the squared distances to both epipolar lines
+    (kernel::SymmetricEpipolarDistanceError)."""
+    return point_line_error_sq(F, x1, x2) + point_line_error_sq(F.transpose(-1, -2), x2, x1)
+
+
+def sampson_error_sq(F, x1, x2):
+    """First-order geometric (Sampson) squared error (kernel::SampsonError)."""
+    l2 = _epi_lines(F, x1)
+    l1 = _epi_lines(F.transpose(-1, -2), x2)
+    num = l2[..., 0] * x2[..., 0] + l2[..., 1] * x2[..., 1] + l2[..., 2]
+    den = l2[..., 0] ** 2 + l2[..., 1] ** 2 + l1[..., 0] ** 2 + l1[..., 1] ** 2
+    return num * num / torch.clamp(den, min=1e-30)

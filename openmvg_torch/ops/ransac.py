@@ -96,9 +96,10 @@ def _nfa_scan(err_sq, n_valid, min_samples, logalpha0, mult_error, loge0,
 
 def tree_map(fn, *trees):
     """fn over a model that is one tensor or a tuple of tensors (P3P's
-    (R, t)), leaf by leaf."""
+    (R, t), a NamedTuple such as a Plane), leaf by leaf."""
     if isinstance(trees[0], (tuple, list)):
-        return type(trees[0])(fn(*leaves) for leaves in zip(*trees))
+        out = [fn(*leaves) for leaves in zip(*trees)]
+        return trees[0]._make(out) if hasattr(trees[0], "_make") else type(trees[0])(out)
     return fn(*trees)
 
 
@@ -252,3 +253,54 @@ LOGALPHA0_ANGULAR = math.log10(0.5)
 MULT_ERROR_POINT_TO_LINE = 0.5
 MULT_ERROR_POINT_TO_POINT = 1.0
 MULT_ERROR_ANGULAR = 0.25
+
+
+# ---------------------------------------------------------------------------
+# classic estimators (robust_estimator_{MaxConsensus,LMeds}.hpp): one
+# problem, every minimal sample solved and scored in one batch
+# ---------------------------------------------------------------------------
+
+def _score_all(generator, fit_fn, error_fn, data, valid, min_samples, n_samples, idx):
+    """Draw (or take) n_samples minimal samples, fit them all and score every
+    model on every point.  data: tuple of (N, ...) tensors; fit_fn maps a
+    tuple of (S, s, ...) samples to (models (S, M, ...), ok (S, M)); error_fn
+    maps (models (R, ...), data) to squared residuals (R, N).  idx, when
+    given, is the (S, s) sample table and the generator is not used.
+    Returns (flat models (R, ...), model ok (R,), err (R, N), +inf where
+    the point or the model is invalid)."""
+    if idx is None:
+        idx = draw_samples([generator], n_samples, min_samples,
+                           valid.to(data[0].dtype)[None])[0]
+    idx = torch.as_tensor(idx, device=valid.device).long()
+    models, mvalid = fit_fn(tuple(d[idx] for d in data))
+    flat = tree_map(lambda m: m.reshape((-1,) + m.shape[2:]), models)
+    mvalid = mvalid.reshape(-1)
+    err = error_fn(flat, data)
+    ok = valid[None, :] & mvalid[:, None] & ~torch.isnan(err)
+    return flat, mvalid, torch.where(ok, err, torch.full_like(err, math.inf))
+
+
+def max_consensus(generator, fit_fn, error_fn, data, valid, min_samples, threshold_sq,
+                  n_samples=1024, idx=None):
+    """Plain max-consensus RANSAC (robust_estimator_MaxConsensus.hpp):
+    the model with the most residuals <= threshold_sq (the first on ties).
+    Returns (model, inliers (N,) bool, score)."""
+    flat, _, err = _score_all(generator, fit_fn, error_fn, data, valid, min_samples,
+                              n_samples, idx)
+    score = (err <= threshold_sq).sum(-1)
+    best = int(torch.argmax(score))
+    return (tree_map(lambda a: a[best], flat), (err[best] <= threshold_sq) & valid,
+            int(score[best]))
+
+
+def lmeds(generator, fit_fn, error_fn, data, valid, min_samples, n_samples=1024, idx=None):
+    """Least median of squares (robust_estimator_LMeds.hpp): the model whose
+    k-th smallest residual, k = n_valid // 2, is least.  Returns (model,
+    that median)."""
+    flat, mvalid, err = _score_all(generator, fit_fn, error_fn, data, valid, min_samples,
+                                   n_samples, idx)
+    k = int(valid.sum()) // 2
+    med = torch.sort(err, dim=-1).values[:, k]
+    med = torch.where(mvalid, med, torch.full_like(med, math.inf))
+    best = int(torch.argmin(med))
+    return tree_map(lambda a: a[best], flat), med[best]

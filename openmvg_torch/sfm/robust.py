@@ -238,7 +238,7 @@ def _single(batch_fn, generator, *args, gumbel=None, **kw):
 
     res = batch_fn([generator], *map(lift, args), gumbel=None if gumbel is None else gumbel[None],
                    **kw)
-    return ransac.ACRansacResult(*[x[0] for x in res])
+    return ransac.ACRansacResult(*[ransac.tree_map(lambda a: a[0], x) for x in res])
 
 
 def robust_essential_angular(generator, b1, b2, valid, n_samples=1024,
@@ -391,6 +391,14 @@ def robust_resection_angular_batch(generators, bearings, X3d, valid, n_samples=1
         generators, _p3p_fit, err, (bearings, X3d), valid, min_samples=3,
         logalpha0=ransac.LOGALPHA0_ANGULAR, mult_error=ransac.MULT_ERROR_ANGULAR,
         max_models=4, n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
+
+
+def robust_resection_angular(generator, bearings, X3d, valid, n_samples=1024,
+                             precision_sq=math.inf, gumbel=None):
+    """One view (no batch dimension): the SPHERICAL camera's resection in
+    localisation (SfM_Localizer's dispatch for non-pinhole cameras)."""
+    return _single(robust_resection_angular_batch, generator, bearings, X3d, valid,
+                   n_samples=n_samples, precision_sq=precision_sq, gumbel=gumbel)
 
 
 # ---------------------------------------------------------------------------

@@ -201,7 +201,7 @@ def spherical_room_dataset(out_dir, n_views=100, width=5376, height=2688, n_obs=
 def render_textured_sphere_dataset(out_dir, n_views=100, size=1024,
                                    focal=None, seed=0, radius=1.4,
                                    cam_radius=3.0, n_waves=96,
-                                   freq_hi=400.0, arc_step=None,
+                                   freq_hi=400.0, arc_step=None, thetas=None,
                                    device="cuda"):
     """Ray-cast a procedurally textured sphere from a camera ring.
 
@@ -210,7 +210,10 @@ def render_textured_sphere_dataset(out_dir, n_views=100, size=1024,
     consistent across views.  The random scene comes from numpy with
     `seed`, as in the reference; the shading runs in float64 on `device`.
     Writes out_dir/images/img_XX.png and Strecha-format ground truth in
-    out_dir/gt; returns (imgdir, gtdir, Rs, Cs, K)."""
+    out_dir/gt; returns (imgdir, gtdir, Rs, Cs, K).  View v sits at ring
+    angle (v - n_views / 2) * arc_step (2 pi / n_views by default), or at
+    thetas[v] when `thetas` is given (then len(thetas) views): held-out
+    views of the same world."""
     rng = np.random.default_rng(seed)
     focal = focal or size * 1.2
     freqs = np.exp(rng.uniform(np.log(3.0), np.log(freq_hi), n_waves))
@@ -238,9 +241,10 @@ def render_textured_sphere_dataset(out_dir, n_views=100, size=1024,
                            torch.ones_like(xx)], dim=-1)
 
     step = arc_step if arc_step is not None else 2 * np.pi / n_views
+    if thetas is None:
+        thetas = [(v - n_views / 2) * step for v in range(n_views)]
     Rs, Cs = [], []
-    for v in range(n_views):
-        theta = (v - n_views / 2) * step
+    for v, theta in enumerate(thetas):
         C = np.array([cam_radius * np.sin(theta), 0.3 * np.sin(2 * theta),
                       -cam_radius * np.cos(theta)])
         R = _look_at(C, [0.0, 0.0, 0.0])
