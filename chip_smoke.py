@@ -101,12 +101,15 @@ last line is printed):
             count set to 0 just before and read just after: localize 10
             held-out views rendered halfway between ring views (>= 9
             localized, each centre within 0.015 of the renderer's after the
-            eval alignment, K2 launched); refine -n 30 with K3 off, then with
+            eval alignment, K2 launched; then K2's camera sums of one
+            query's float64 pose-only BA against their plain version within
+            1e-12 (1 + S)); refine -n 30 with K3 off, then with
             OMT_FUSED_SMATVEC=1 (the cost does not rise, rmse within 1e-3 px
             of the input's and of each other, eval position_rmse <= 0.006, K2
             in both, K3 only in the second), refine -d 2 exits non-zero
             naming ROADMAP item 9; cluster -n 4 (4 files whose views cover the
-            posed views, K2); geo-register --use_priors on the renderer's
+            posed views, K2; then the k-means Lloyd sums against
+            seg_sum_plain within 1e-5 (1 + S)); geo-register --use_priors on the renderer's
             centres under a planted similarity into ECEF (scale 10, 10%
             outliers; the scale within 1% once the reconstruction's gauge is
             taken out, the median centre within 0.06 of its prior);
@@ -119,10 +122,16 @@ last line is printed):
             -G, convert-matches -a, matches2tracks, split-matches, the SVG
             exports (first 10 pairs) and retrieval-quality of the vlad pairs,
             each count printed equal to the files'; bench-ann --source sift
-            --sweep (recall >= 0.90 at top_c 16, K1 launched); the L-inf
-            solvers on the 1,000 longest tracks and 10 views' resections (up to
-            1,000 points each), the observations within 0.5 px (equal to the CPU
-            run within 1e-6 relative, within 0.01 / 0.006 of the L2 scene);
+            --sweep (recall >= 0.90 at top_c 16, K1 launched; then K1 on
+            its brute-force inputs, 1,245 float32 queries, against
+            two_nn_plain); the L-inf solvers on the 1,000 longest tracks and
+            10 views' resections (up to 1,000 points each), on every
+            observation the reconstruction kept, on those the L2 scene
+            reprojects within 1 px and within 0.5 px (at 0.5 px equal
+            to the CPU run within 1e-6 relative; in every set the points
+            within 0.01 of the L2 scene; the centres within 0.006 at 0.5 px
+            and 0.03 at 1 px of the L2 scene's and of the renderer's after
+            the eval alignment);
             --profile DIR on refine, in a process of its own (one trace
             naming K2's kernel and the bundle_adjustment stage)
   camera3   the one-command main path as users run it, every flag at its
@@ -200,7 +209,9 @@ paths as launches_v2, launches_stellar and launches_camera3, each step's of the
 tools phase as launches_tools, K1's in the
 matchers phase as launches_matchers and K2's in vlad as launches_vlad,
 with K1's check and times at known-poses' shape and at AKAZE_FLOAT's
-64-d float32 shape, K2's at the VLAD Lloyd sums' shape, and K2's and K3's
+64-d float32 shape, K2's at the VLAD Lloyd sums' shape, the tools phase's
+shapes as tools_shapes (K1 at bench-ann's, K2 at localize's camera sums
+and at cluster's Lloyd sums), and K2's and K3's
 launches in the spherical phase;
 every phase's stage and engine seconds, and each matchers, describers,
 spherical, cubify, vo and tools step's seconds and readings), then
@@ -2134,6 +2145,268 @@ def k1_library_chunked(stack, counts, pairs, chunk_bytes=4 << 30):
     return out
 
 
+def k2_at_localize(seg_sum, scene, md, query, dev):
+    """K2 at localize's shapes: the camera sums of one query's float64
+    pose-only bundle adjustment (1 pose, 1 intrinsic, one row an inlier)
+    built as cmd_localize builds it (the query's SIFT, match_query, the
+    adaptive P3P, pose_problem) against camera_jtu_plain / camera_jtj_plain
+    in float64, within 1e-12 (1 + S).  Times each half beside its bound and
+    beside einsum, which computes the same sums when every row is of the
+    one pose."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+    from openmvg_torch.io.image import read_image
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm import localization as loc
+    from openmvg_torch.sfm.describer import describe_image
+
+    _, descs = cli._load_features_for_scene(scene, md)
+    db = loc.build_landmark_database(scene, descs)
+    iid = int(scene.view_intrinsic[0])
+    prm = np.asarray(scene.cameras.params)[iid]
+    kind = int(scene.cameras.kind[iid])
+    w, h = float(scene.cameras.width[iid]), float(scene.cameras.height[iid])
+    qf, qd = describe_image(read_image(query, grayscale=True), device=dev)
+    res = loc.localize_image(db, qf, qd, cm.K_matrix_np(prm), w, h, kind=kind,
+                             disto_params=prm[3:cm.N_PARAMS[kind]], refine=False, device=dev)
+    if not res.found:
+        fail("[tools] K2 at localize's shape: the query was not localized")
+    x2d, X3d = loc.match_query(db, qf, qd, device=dev)
+    params = np.zeros(cm.MAX_PARAMS)
+    params[:cm.N_PARAMS[kind]] = prm[:cm.N_PARAMS[kind]]
+    p = ba.with_plans(loc.pose_problem(res.R, res.C, params, kind, w, h, x2d[res.inliers],
+                                       X3d[res.inliers], dev))
+    r, Jp6, Ji8, _ = ba.jacobians(p, ba.BAConfig(), ba.cam_fast_ok(p))
+    O = Jp6.shape[0]
+    args = (Jp6, Ji8, (-r).contiguous(), p.obs_pose, p.obs_intr, 1, 1)
+    out = {}
+    for kind_ in ("jtu", "jtj"):
+        got = camera_call(seg_sum, kind_, args, p.seg_plans)
+        torch.cuda.synchronize()
+        err = camera_check(seg_sum, kind_, got, args, 1e-12)
+        if err is None:
+            fail(f"[tools] K2 at localize's shape (O {O}, float64): camera_{kind_} outside "
+                 "1e-12 (1 + S) of its plain version")
+        ms = cuda_ms(lambda: camera_call(seg_sum, kind_, args, p.seg_plans), 50)
+        if kind_ == "jtu":
+            plain_ms = cuda_ms(lambda: seg_sum.camera_jtu_plain(*args), 20)
+            lib = (lambda: (torch.einsum("oki,ok->i", Jp6, args[2]),
+                            torch.einsum("oki,ok->i", Ji8, args[2])))
+        else:
+            plain_ms = cuda_ms(lambda: seg_sum.camera_jtj_plain(*args[:2], *args[3:]), 20)
+            lib = (lambda: (torch.einsum("oki,okj->ij", Jp6, Jp6),
+                            torch.einsum("oki,okj->ij", Ji8, Ji8)))
+        lib_ms = cuda_ms(lib, 20)
+        bound, by = camera_bound_ms(O, 1, 1, kind_, 8)
+        log(f"[tools] K2 at localize's shape (camera_{kind_}, O {O}, P 1, I 1, float64): max "
+            f"|err| {err:.3g} within 1e-12 (1 + S); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, einsum {lib_ms:.4f} ms, bound {bound:.3g} ms ({by}); "
+            f"{bound / ms * 100:.3g}% of the bound")
+        out[kind_] = dict(O=O, P=1, I=1, dtype="float64", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return out
+
+
+def k2_at_cluster(seg_sum, scene, posed, dev):
+    """K2 at cluster's shape: the Lloyd sums of k-means on the posed
+    centres (float32, 3 columns, 4 clusters; the final assignment of
+    cluster_views' own k-means) against seg_sum_plain in float64, within
+    1e-5 (1 + S); times beside index_add_ and the bound."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.ops import vlad
+
+    X = torch.as_tensor(scene.pose_C[scene.view_pose[posed]].astype(np.float32), device=dev)
+    _, assign = vlad.kmeans(torch.Generator().manual_seed(0), X, 4)
+    got = vlad.cluster_sums(X, assign, 4)
+    err = seg_sum_check(seg_sum, got, X, assign, 4, 1e-5)
+    if err is None:
+        fail(f"[tools] K2 at cluster's shape ({X.shape[0]} x 3, 4 clusters) differs from "
+             "seg_sum_plain beyond 1e-5 (1 + S)")
+    ms = cuda_ms(lambda: vlad.cluster_sums(X, assign, 4), 50)
+    plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(X, assign, 4), 50)
+    lib_ms = cuda_ms(lambda: library_seg_sum(X, assign, 4), 50)
+    bound, by = seg_sum_bound_ms(X.shape[0], 3, 4, 4)
+    log(f"[tools] K2 at cluster's Lloyd sums ({X.shape[0]} rows x 3, 4 clusters): max |err| "
+        f"{err:.3g} within 1e-5 (1 + S); kernel {ms:.4f} ms (its plan included), plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bound:.3g} ms ({by}); "
+        f"{bound / ms * 100:.3g}% of the bound")
+    return dict(O=int(X.shape[0]), D=3, num=4, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def k1_at_bench_ann(two_nn, dev):
+    """K1 at bench-ann's brute-force shape: the SIFT source's query and
+    base descriptors (float32, D 128), built as cmd_bench_ann builds them,
+    against two_nn_plain: d1 and d2 within 1e-4 (1 + |d|), idx1 equal away
+    from near-ties; times beside cdist + topk and the bound."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch import cli
+
+    base, query = cli.ann_sift_descriptors(np.random.default_rng(0), 4096, dev)
+    a = torch.as_tensor(query, device=dev)
+    b = torch.as_tensor(base, device=dev)
+    got = two_nn.two_nn_fused(a, b)
+    ref = two_nn.two_nn_plain(a, b)
+    err = 0.0
+    for x, y, what in zip(got[:2], ref[:2], ("d1", "d2")):
+        bad = (x - y).abs() > 1e-4 * (1 + y.abs())
+        if bad.any():
+            fail(f"[tools] K1 at bench-ann's shape: {what} outside 1e-4 (1 + |d|) in "
+                 f"{int(bad.sum())} entries")
+        err = max(err, float((x - y).abs().max()))
+    near_tie = (ref[1] - ref[0]) <= 2e-4 * (1 + ref[0])
+    bad = (got[2] != ref[2]) & ~near_tie
+    if bad.any():
+        fail(f"[tools] K1 at bench-ann's shape: {int(bad.sum())} indices differ away from a tie")
+    ms = cuda_ms(lambda: two_nn.two_nn_fused(a, b), 20)
+    plain_ms = cuda_ms(lambda: two_nn.two_nn_plain(a, b), 20)
+    lib_ms = cuda_ms(lambda: library_two_nn(a, b), 20)
+    n, m, D = a.shape[0], b.shape[0], a.shape[1]
+    t_ops = 2.0 * n * m * D / H100_F32_FLOPS
+    t_bytes = ((n + m) * D * 4 + n * 12) / H100_BYTES
+    bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    log(f"[tools] K1 at bench-ann's brute force ({n} queries x {m}, D {D} float32): max |err| "
+        f"{err:.3g} within 1e-4 (1 + |d|) of the plain version; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cdist + topk {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+        f"{bound / ms * 100:.2f}% of the bound")
+    return dict(n=n, m=m, dim=D, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
+
+
+# The observation sets of the L-inf check, each with its centre gate: every
+# observation the reconstruction kept (logged), those the L2 scene
+# reprojects within 1 px (about 2.6 times its 0.38 px rmse) and within
+# 0.5 px.  An L-inf estimate is as good as the largest residual of its
+# data: on the H100 the projective resection's centres read 0.0152 from
+# the L2 scene and 0.0167 from the renderer's at 1 px, 0.0035 and 0.0036
+# at 0.5 px, so the 1 px gate is set from that reading.  The 0.5 px set
+# also runs on the CPU.
+LINF_SETS = {"kept": (math.inf, None), "1px": (1.0, 0.03), "0.5px": (0.5, 0.006)}
+LINF_CPU_TWIN = "0.5px"
+
+
+def linf_check(scene, posed, ok, Cs, align, dev):
+    """triangulate_linf on the 1,000 longest tracks in one batched call and
+    resection_linf on 10 views (up to 1,000 points each), for every set of
+    LINF_SETS on the card, and for LINF_CPU_TWIN also on the CPU.  Gates:
+    the card within 1e-6 relative of the CPU; in every set each point within
+    0.01 of the L2 scene's; each centre within the set's gate of the L2
+    scene's and of the renderer's after the eval alignment (the renderer's
+    units)."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.ops import linfinity, resection
+    from openmvg_torch.sfm.scene import reprojection_residuals
+
+    s_e, R_e, t_e = align
+    Kv = cm.K_matrix_np(np.asarray(scene.cameras.params))
+    P_all = {v: Kv[scene.view_intrinsic[v]] @ np.concatenate(
+        [scene.pose_R[scene.view_pose[v]],
+         (-scene.pose_R[scene.view_pose[v]] @ scene.pose_C[scene.view_pose[v]])[:, None]], 1)
+        for v in posed}
+    r, info = reprojection_residuals(scene)
+    rn = np.full(scene.n_observations, np.inf)
+    rn[info["obs_idx"]] = np.linalg.norm(r, axis=1)
+    # resection fixes P[2, 3] = 1, the world origin's depth, so the world
+    # origin moves to the landmarks' centroid, in front of every camera
+    ctr = scene.X[scene.X_valid].mean(0)
+    rv = posed[::max(1, len(posed) // 10)][:10]
+    C_l2 = np.stack([scene.pose_C[scene.view_pose[v]] for v in rv])
+
+    def inputs(within):
+        use = ok & (rn <= within)
+        by_lm = {}
+        for i in np.nonzero(use)[0]:
+            if int(scene.obs_view[i]) in P_all:
+                by_lm.setdefault(int(scene.obs_landmark[i]), []).append(i)
+        # the 1,000 longest tracks: the widest baselines
+        lms = sorted(by_lm, key=lambda l: (-len(by_lm[l]), l))[:1000]
+        vmax = max(len(by_lm[l]) for l in lms)
+        P = np.zeros((len(lms), vmax, 3, 4))
+        x = np.zeros((len(lms), vmax, 2))
+        valid = np.zeros((len(lms), vmax), bool)
+        for k, l in enumerate(lms):
+            for j, i in enumerate(by_lm[l]):
+                P[k, j], x[k, j], valid[k, j] = P_all[int(scene.obs_view[i])], scene.obs_x[i], True
+        per_view = [np.nonzero(use & (scene.obs_view == v))[0][:1000] for v in rv]
+        nmax = max(len(p) for p in per_view)
+        x2d, X3d = np.zeros((len(rv), nmax, 2)), np.zeros((len(rv), nmax, 3))
+        vv = np.zeros((len(rv), nmax), bool)
+        for k, idx in enumerate(per_view):
+            x2d[k, :len(idx)] = scene.obs_x[idx]
+            X3d[k, :len(idx)] = scene.X[scene.obs_landmark[idx]] - ctr
+            vv[k, :len(idx)] = True
+        return dict(lms=lms, vmax=vmax, nmax=nmax, tri=(P, x, valid), res=(x2d, X3d, vv),
+                    max_px=float(rn[use].max()))
+
+    def solve(inp, d):
+        def T(a):
+            return torch.as_tensor(a, device=d)
+
+        if d != "cpu":
+            torch.cuda.synchronize()
+        tt = time.perf_counter()
+        Xl, gl = linfinity.triangulate_linf(*map(T, inp["tri"]))
+        Pr, gr = linfinity.resection_linf(*map(T, inp["res"]))
+        Kr, Rr, tr_ = resection.krt_from_P(Pr)
+        Cr = -torch.einsum("vji,vj->vi", Rr, tr_) + T(ctr)
+        return [a.cpu().numpy() for a in (Xl, gl, Pr, gr, Cr)] + [time.perf_counter() - tt]
+
+    out = {}
+    for name, (within, c_gate) in LINF_SETS.items():
+        t0 = time.perf_counter()
+        inp = inputs(within)
+        res = solve(inp, dev)
+        # in the renderer's units: the eval alignment's scale s_e
+        rec = dict(
+            within_px=within if math.isfinite(within) else None, max_residual_px=inp["max_px"],
+            tracks=len(inp["lms"]), track_views_max=inp["vmax"], views=len(rv),
+            points_per_view_max=inp["nmax"], card_s=res[5],
+            X_err=s_e * float(np.linalg.norm(res[0] - scene.X[inp["lms"]], axis=1).max()),
+            C_err=s_e * float(np.linalg.norm(res[4] - C_l2, axis=1).max()),
+            C_err_truth=float(np.linalg.norm(s_e * res[4] @ R_e.T + t_e - Cs[rv], axis=1).max()),
+            C_l2_err_truth=float(np.linalg.norm(s_e * C_l2 @ R_e.T + t_e - Cs[rv], axis=1).max()),
+            gamma_tri_median=float(np.median(res[1])), gamma_res_max=float(res[3].max()),
+            centre_gate=c_gate)
+        if name == LINF_CPU_TWIN:
+            cpu = solve(inp, "cpu")
+            rec.update(cpu_s=cpu[5], card_vs_cpu_rel=max(
+                float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+                for a, b in zip(res[:5], cpu[:5])))
+        rec["s"] = time.perf_counter() - t0
+        out[name] = rec
+        log(f"[tools] L-inf on the observations {name} ({rec['max_residual_px']:.3f} px the "
+            f"largest L2 residual): {rec['tracks']} tracks (up to {rec['track_views_max']} "
+            f"views) and {rec['views']} resections (up to {rec['points_per_view_max']} points) "
+            f"in {rec['card_s']:.2f} s on the card"
+            + (f", {rec['cpu_s']:.2f} s on the CPU, card vs CPU max relative difference "
+               f"{rec['card_vs_cpu_rel']:.3g}" if "cpu_s" in rec else "")
+            + f"; points within {rec['X_err']:.5f} and centres within {rec['C_err']:.5f} of "
+            f"the L2 scene, centres within {rec['C_err_truth']:.5f} of the renderer's after "
+            f"the eval alignment (the L2 centres {rec['C_l2_err_truth']:.5f}); median "
+            f"triangulation gamma {rec['gamma_tri_median']:.4f} px, largest resection gamma "
+            f"{rec['gamma_res_max']:.4f} px")
+        if name == LINF_CPU_TWIN and rec["card_vs_cpu_rel"] > 1e-6:
+            fail(f"[tools] the L-inf solvers on the card differ from the CPU by "
+                 f"{rec['card_vs_cpu_rel']:.3g} relative")
+        if rec["X_err"] > 0.01:
+            fail(f"[tools] L-inf points on {name}: {rec['X_err']:.5f} from the L2 scene (> 0.01)")
+        if c_gate is not None and max(rec["C_err"], rec["C_err_truth"]) > c_gate:
+            fail(f"[tools] L-inf centres on {name}: {rec['C_err']:.5f} from the L2 scene, "
+                 f"{rec['C_err_truth']:.5f} from the renderer's (> {c_gate})")
+    out["s"] = sum(r["s"] for r in out.values() if isinstance(r, dict))
+    return out
+
+
 def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     """The rest of the SfM layer and the CLI's tools on the pipeline's run
     directory and the INCREMENTAL scene, each step with every kernel's count
@@ -2151,10 +2424,9 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     from openmvg_torch.io.matches_io import load_matches, save_matches
     from openmvg_torch.io.sfm_data import load_sfm_data, save_sfm_data
     from openmvg_torch.models import cameras as cm
-    from openmvg_torch.ops import linfinity, resection
     from openmvg_torch.ops.image_ops import undistort_image
     from openmvg_torch.sfm import ba
-    from openmvg_torch.sfm.scene import reprojection_residuals, rmse
+    from openmvg_torch.sfm.scene import rmse
     from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
 
     md, work, gtdir = run["md"], run["work"], run["gtdir"]
@@ -2211,6 +2483,8 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
         fail(f"[tools] a localized centre lies {max(errs):.4f} from the renderer's (> 0.015)")
     if rec["launches"]["seg_sum"] < 1:
         fail("[tools] localize did not launch K2")
+    seg_sum, two_nn = kernel_mods[1], kernel_mods[0]
+    out["k2_at_localize"] = k2_at_localize(seg_sum, scene, md, qimgs[0], dev)
 
     # 2. refine -n 30 twice: K3 off, then OMT_FUSED_SMATVEC=1
     prob, _ = ba.problem_from_scene(scene, refine_intrinsics=ba.ADJUST_ALL, device=dev)
@@ -2275,6 +2549,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
              f"{len(posed)} posed views")
     if rec["launches"]["seg_sum"] < 1:
         fail("[tools] cluster did not launch K2")
+    out["k2_at_cluster"] = k2_at_cluster(seg_sum, scene, posed, dev)
 
     # 4. geo-register --use_priors: the renderer's centres under a planted
     #    similarity into ECEF near Paris, scale 10, 10% of them outliers
@@ -2486,81 +2761,10 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
         fail(f"[tools] bench-ann recall at top_c 16 {r16} below 0.90")
     if rec["launches"]["two_nn"] < 1:
         fail("[tools] bench-ann did not launch K1")
+    out["k1_at_bench_ann"] = k1_at_bench_ann(two_nn, dev)
 
     # 9. the L-infinity solvers: 1,000 tracks in one call, 10 views' resections
-    t0 = time.perf_counter()
-    Kv = cm.K_matrix_np(np.asarray(scene.cameras.params))
-    P_all = {v: Kv[scene.view_intrinsic[v]] @ np.concatenate(
-        [scene.pose_R[scene.view_pose[v]],
-         (-scene.pose_R[scene.view_pose[v]] @ scene.pose_C[scene.view_pose[v]])[:, None]], 1)
-        for v in posed}
-    # an L-inf estimate is as good as the bound on its data's noise (the
-    # largest residual decides it): the observations the L2 scene
-    # reprojects within 0.5 px (its rmse is about 0.38 px)
-    r, info = reprojection_residuals(scene)
-    inl = np.zeros(scene.n_observations, bool)
-    inl[info["obs_idx"][np.linalg.norm(r, axis=1) <= 0.5]] = True
-    by_lm = {}
-    for i in np.nonzero(ok & inl)[0]:
-        if int(scene.obs_view[i]) in P_all:
-            by_lm.setdefault(int(scene.obs_landmark[i]), []).append(i)
-    # the 1,000 longest tracks: the widest baselines, where L2 and L-inf
-    # points differ by the noise alone
-    lms = sorted(by_lm, key=lambda l: (-len(by_lm[l]), l))[:1000]
-    vmax = max(len(by_lm[l]) for l in lms)
-    P = np.zeros((len(lms), vmax, 3, 4))
-    x = np.zeros((len(lms), vmax, 2))
-    valid = np.zeros((len(lms), vmax), bool)
-    for k, l in enumerate(lms):
-        for j, i in enumerate(by_lm[l]):
-            P[k, j], x[k, j], valid[k, j] = P_all[int(scene.obs_view[i])], scene.obs_x[i], True
-    # resection fixes P[2, 3] = 1, the world origin's depth, so the world
-    # origin moves to the landmarks' centroid, in front of every camera
-    ctr = scene.X[scene.X_valid].mean(0)
-    rv = posed[::max(1, len(posed) // 10)][:10]
-    per_view = [np.nonzero(ok & inl & (scene.obs_view == v))[0][:1000] for v in rv]
-    nmax = max(len(p) for p in per_view)
-    x2d, X3d = np.zeros((len(rv), nmax, 2)), np.zeros((len(rv), nmax, 3))
-    vv = np.zeros((len(rv), nmax), bool)
-    for k, idx in enumerate(per_view):
-        x2d[k, :len(idx)] = scene.obs_x[idx]
-        X3d[k, :len(idx)] = scene.X[scene.obs_landmark[idx]] - ctr
-        vv[k, :len(idx)] = True
-    res = {}
-    for d in (dev, "cpu"):
-        def T(a):
-            return torch.as_tensor(a, device=d)
-
-        if d == dev:
-            torch.cuda.synchronize()
-        tt = time.perf_counter()
-        Xl, gl = linfinity.triangulate_linf(T(P), T(x), T(valid))
-        Pr, gr = linfinity.resection_linf(T(x2d), T(X3d), T(vv))
-        Kr, Rr, tr_ = resection.krt_from_P(Pr)
-        Cr = -torch.einsum("vji,vj->vi", Rr, tr_) + T(ctr)
-        res[d] = [a.cpu().numpy() for a in (Xl, gl, Pr, gr, Cr)] + [time.perf_counter() - tt]
-    rel = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
-              for a, b in zip(res[dev][:5], res["cpu"][:5]))
-    # in the renderer's units: the eval alignment's scale s_e
-    X_err = s_e * float(np.linalg.norm(res[dev][0] - scene.X[lms], axis=1).max())
-    C_err = s_e * float(np.linalg.norm(res[dev][4] - np.stack(
-        [scene.pose_C[scene.view_pose[v]] for v in rv]), axis=1).max())
-    out["linf"] = dict(s=time.perf_counter() - t0, tracks=len(lms), track_views_max=vmax,
-                       views=len(rv), points_per_view_max=nmax, card_s=res[dev][5],
-                       cpu_s=res["cpu"][5], card_vs_cpu_rel=rel, X_err=X_err, C_err=C_err,
-                       gamma_tri_median=float(np.median(res[dev][1])),
-                       gamma_res_max=float(res[dev][3].max()))
-    log(f"[tools] L-inf: {len(lms)} tracks (up to {vmax} views) and {len(rv)} resections (up "
-        f"to {nmax} points) in {res[dev][5]:.2f} s on the card, {res['cpu'][5]:.2f} s on the "
-        f"CPU; card vs CPU max relative difference {rel:.3g}; points within {X_err:.5f} and "
-        f"centres within {C_err:.5f} of the L2 scene (the renderer's units); median "
-        f"triangulation gamma "
-        f"{out['linf']['gamma_tri_median']:.4f} px")
-    if rel > 1e-6:
-        fail(f"[tools] the L-inf solvers on the card differ from the CPU by {rel:.3g} relative")
-    if X_err > 0.01 or C_err > 0.006:
-        fail(f"[tools] L-inf points {X_err:.5f} (> 0.01) or centres {C_err:.5f} (> 0.006) "
-             "from the L2 scene")
+    out["linf"] = linf_check(scene, posed, ok, Cs, (s_e, R_e, t_e), dev)
 
     # 10. --profile DIR on refine, in a process of its own as a user runs it
     #     (a large profiler session leaves later ones in the same process
@@ -2902,6 +3106,7 @@ def main():
         **new_paths("two_nn"), "launches_matchers": mrun["launches_two_nn"],
         "known_poses_shape": mrun["known_poses"]["k1_at_shape"],
         "akaze_float_shape": drun["AKAZE_FLOAT"]["k1_at_shape"],
+        "tools_shapes": {"bench_ann": trun["k1_at_bench_ann"]},
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
@@ -2914,6 +3119,9 @@ def main():
         "launches_global": grun["launches"]["seg_sum"], **new_paths("seg_sum"),
         "launches_vlad": mrun["launches_seg_sum_vlad"],
         "vlad_lloyd_shape": mrun["vlad"]["k2_lloyd_at_shape"],
+        "tools_shapes": {"localize_camera_jtu": trun["k2_at_localize"]["jtu"],
+                         "localize_camera_jtj": trun["k2_at_localize"]["jtj"],
+                         "cluster_lloyd": trun["k2_at_cluster"]},
         "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["seg_sum"],
         "launches_spherical_global": sprun["GLOBAL"]["launches"]["seg_sum"],
     }, {
@@ -2948,7 +3156,9 @@ def main():
         "describers": {m: {k: v for k, v in r.items() if k != "k1_at_shape"}
                        for m, r in drun.items()},
         "spherical": sprun, "cubify": curun, "vo": vorun,
-        "tools": {k: v for k, v in trun.items() if k != "launches_by_step"}}
+        "tools": {k: v for k, v in trun.items()
+                  if k not in ("launches_by_step", "k2_at_localize", "k2_at_cluster",
+                               "k1_at_bench_ann")}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

@@ -818,6 +818,29 @@ def cmd_split_matches(args):
     return 0
 
 
+def ann_sift_descriptors(rng, n, device):
+    """bench-ann's SIFT source: (base, query) float32 descriptors of a
+    textured 512 x 512 image and of its warp by a 10 degree rotation and
+    1.1 scale, at most n each."""
+    from openmvg_torch.ops import image_ops
+    from openmvg_torch.sfm.describer import describe_image
+
+    img = np.zeros((512, 512), np.float32)
+    for period in (4, 8, 16, 32):
+        coarse = rng.random((512 // period + 2, 512 // period + 2))
+        img += np.kron(coarse, np.ones((period, period)))[:512, :512]
+    img = ((img - img.min()) / np.ptp(img)).astype(np.float32)
+    a = np.radians(10.0)
+    H = np.eye(3)
+    H[:2, :2] = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]) * 1.1
+    H[:2, 2] = 256 - H[:2, :2] @ [256, 256]
+    warped = image_ops.warp_homography(torch.as_tensor(img, device=device), H).cpu().numpy()
+    _, base = describe_image(img, preset="HIGH", max_features=n, device=device)
+    _, query = describe_image(warped.astype(np.float32), preset="HIGH", max_features=n,
+                              device=device)
+    return base.astype(np.float32), query.astype(np.float32)
+
+
 def cmd_bench_ann(args):
     """main_benchANN.cpp: recall and time of the cascade-hashing matcher
     against exact brute force (K1 on the card).  --source synthetic: noisy
@@ -831,24 +854,7 @@ def cmd_bench_ann(args):
     rng = np.random.default_rng(0)
     n, d = args.n_descriptors, 128
     if args.source == "sift":
-        from openmvg_torch.ops import image_ops
-        from openmvg_torch.sfm.describer import describe_image
-
-        img = np.zeros((512, 512), np.float32)
-        for period in (4, 8, 16, 32):
-            coarse = rng.random((512 // period + 2, 512 // period + 2))
-            img += np.kron(coarse, np.ones((period, period)))[:512, :512]
-        img = ((img - img.min()) / np.ptp(img)).astype(np.float32)
-        a = np.radians(10.0)
-        H = np.eye(3)
-        H[:2, :2] = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]) * 1.1
-        H[:2, 2] = 256 - H[:2, :2] @ [256, 256]
-        warped = image_ops.warp_homography(torch.as_tensor(img, device=dev), H).cpu().numpy()
-        _, base = describe_image(img, preset="HIGH", max_features=n, device=dev)
-        _, query = describe_image(warped.astype(np.float32), preset="HIGH", max_features=n,
-                                  device=dev)
-        base = base.astype(np.float32)
-        query = query.astype(np.float32)
+        base, query = ann_sift_descriptors(rng, n, dev)
         n = len(query)
     else:
         base = rng.integers(0, 255, (n, d)).astype(np.float32)
@@ -1379,10 +1385,13 @@ def main(argv=None):
     profile_dir = args.profile or os.environ.get("OMT_PROFILE_DIR")
     try:
         if profile_dir and not torch.autograd._profiler_enabled():
-            from openmvg_torch.utils.logging import Profiler
+            from openmvg_torch.utils.logging import start_profiler, stop_profiler
 
-            with Profiler(profile_dir):
+            start_profiler(profile_dir)
+            try:
                 return args.fn(args)
+            finally:
+                stop_profiler()
         return args.fn(args)
     except FileNotFoundError as e:
         print(f"error: file not found: {e.filename or e}", file=sys.stderr)

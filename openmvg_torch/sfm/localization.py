@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from openmvg_torch.models import cameras as cm
-from openmvg_torch.ops import ransac
 from openmvg_torch.ops.two_nn import l2_distance_matrix
 from openmvg_torch.sfm import ba, robust
 
@@ -61,6 +60,7 @@ class LocalizationResult(NamedTuple):
     C: Optional[np.ndarray]
     n_inliers: int
     threshold_px: float
+    inliers: Optional[np.ndarray] = None   # over match_query's rows
 
 
 def nearest_rows(query, database, k=8):
@@ -86,17 +86,15 @@ def nearest_rows(query, database, k=8):
     return torch.cat(ds), torch.cat(ids)
 
 
-def localize_image(db: LandmarkDB, query_feats, query_descs, K, w, h, ratio=0.8,
-                   n_samples=1024, refine=True, seed=0, kind=cm.PINHOLE, disto_params=None,
-                   device="cuda") -> LocalizationResult:
-    """Match the query's descriptors against the database (2-NN ratio
-    against the best row of a different landmark), then AC-RANSAC P3P
-    (adaptive budget, rounds of 256 samples) and the pose-only refinement.
-    The random draws come from a torch.Generator seeded `seed`."""
+def match_query(db: LandmarkDB, query_feats, query_descs, ratio=0.8, device="cuda"):
+    """The query's 2D-3D matches: each descriptor's nearest database row,
+    kept when it passes the ratio against the best row of a different
+    landmark (the database holds several near-identical descriptors of a
+    landmark, one per observation, which would defeat a plain 2-NN ratio
+    test).  Returns (x2d (n, 2), X3d (n, 3)) float64, or None when too
+    few are left."""
     if len(db.desc) < 10 or len(query_descs) < 10:
-        return LocalizationResult(False, None, None, 0, 0.0)
-    # the database holds several near-identical descriptors of a landmark
-    # (one per observation), which would defeat a plain 2-NN ratio test
+        return None
     k = min(8, len(db.desc))
     d_sorted, idx = nearest_rows(torch.as_tensor(np.asarray(query_descs), device=device),
                                  torch.as_tensor(np.asarray(db.desc), device=device), k)
@@ -109,10 +107,21 @@ def localize_image(db: LandmarkDB, query_feats, query_descs, K, w, h, ratio=0.8,
                   np.inf)
     qi = np.nonzero(d_sorted[:, 0] < (ratio * ratio) * d2)[0]
     if len(qi) < 8:
-        return LocalizationResult(False, None, None, 0, 0.0)
-    x2d = np.asarray(query_feats, np.float64)[qi, :2]
-    X3d = np.asarray(db.X, np.float64)[best_lm[qi]]
+        return None
+    return (np.asarray(query_feats, np.float64)[qi, :2],
+            np.asarray(db.X, np.float64)[best_lm[qi]])
 
+
+def localize_image(db: LandmarkDB, query_feats, query_descs, K, w, h, ratio=0.8,
+                   n_samples=1024, refine=True, seed=0, kind=cm.PINHOLE, disto_params=None,
+                   device="cuda") -> LocalizationResult:
+    """match_query, then AC-RANSAC P3P (adaptive budget, rounds of 256
+    samples) and the pose-only refinement.  The random draws come from a
+    torch.Generator seeded `seed`."""
+    m = match_query(db, query_feats, query_descs, ratio, device)
+    if m is None:
+        return LocalizationResult(False, None, None, 0, 0.0)
+    x2d, X3d = m
     params = np.zeros(cm.MAX_PARAMS)
     params[0] = K[0, 0]
     params[1:3] = K[:2, 2]
@@ -129,31 +138,29 @@ def localize_image(db: LandmarkDB, query_feats, query_descs, K, w, h, ratio=0.8,
     gen = torch.Generator(device=device).manual_seed(seed)
     if int(kind) == cm.SPHERICAL:
         out = robust.robust_resection_angular(gen, b, t(X3d), valid, n_samples=n_samples)
-        R, tt = out.model
     else:
         # the adaptive budget (robust_estimator_ACRansac.hpp:326-489): easy
         # queries stop after a few rounds, hard ones spend all n_samples
         round_size = min(256, n_samples)
-        res, _ = robust.robust_resection_p3p_adaptive(
-            [gen], b[None], t(x2d)[None], t(X3d)[None], t(K)[None], valid[None],
-            t([w]), t([h]), round_size=round_size,
+        out = robust.robust_resection_p3p_adaptive_single(
+            gen, b, t(x2d), t(X3d), t(K), valid, t(w), t(h), round_size=round_size,
             max_rounds=max(1, -(-n_samples // round_size)))
-        out = ransac.ACRansacResult(*[ransac.tree_map(lambda a: a[0], x) for x in res])
-        R, tt = out.model
+    R, tt = out.model
     inl = out.inliers.cpu().numpy()
     if not bool(out.found) or inl.sum() < 8:
         return LocalizationResult(False, None, None, int(inl.sum()), 0.0)
     R = R.cpu().numpy()
     C = -R.T @ tt.cpu().numpy()
     if refine:
-        R, C = _refine_pose(R, C, params, kind, w, h, x2d[inl], X3d[inl], device)
+        prob = pose_problem(R, C, params, kind, w, h, x2d[inl], X3d[inl], device)
+        R, C = _refine_pose(prob)
     return LocalizationResult(True, R, C, int(inl.sum()),
-                              math.sqrt(float(out.threshold_sq)))
+                              math.sqrt(float(out.threshold_sq)), inl)
 
 
-def _refine_pose(R, C, params, kind, w, h, x2d, X3d, device):
-    """Pose-only bundle adjustment of the inlier 2D-3D set, float64
-    (SfM_Localizer::RefinePose); the camera sums launch K2 on the card."""
+def pose_problem(R, C, params, kind, w, h, x2d, X3d, device):
+    """The float64 pose-only bundle adjustment problem of an inlier 2D-3D
+    set: one pose free, the intrinsic and the points fixed."""
     from openmvg_torch.utils import hostmath
 
     n = len(x2d)
@@ -164,7 +171,14 @@ def _refine_pose(R, C, params, kind, w, h, x2d, X3d, device):
         intr_params=params[None], X=X3d, mask_pose=np.ones((1, 6)),
         mask_intr=np.zeros((1, 8)), mask_X=np.zeros(n), prior_C=np.zeros((1, 3)),
         prior_w=np.zeros((1, 3)))
-    prob = ba.problem_from_reference(fields, dtype=torch.float64, device=device)
+    return ba.problem_from_reference(fields, dtype=torch.float64, device=device)
+
+
+def _refine_pose(prob):
+    """SfM_Localizer::RefinePose: ten LM iterations of the pose-only
+    problem; the camera sums launch K2 on the card.  Returns (R, C)."""
+    from openmvg_torch.utils import hostmath
+
     prob, _, _ = ba.adjust(prob, ba.BAConfig(max_iterations=10))
     R2 = hostmath.expmap_np(prob.rotvec[0].cpu().numpy()[None])[0]
     return R2, -R2.T @ prob.t[0].cpu().numpy()

@@ -377,6 +377,14 @@ def robust_resection_p3p_adaptive(generators, bearings, x2d, X3d, K, valid, w, h
         precision_sq=precision_sq, gumbel=gumbel)
 
 
+def robust_resection_p3p_adaptive_single(generator, bearings, x2d, X3d, K, valid, w, h,
+                                         **kw):
+    """One query (no batch dimension; w, h 0-d tensors): the ACRansacResult
+    of robust_resection_p3p_adaptive alone."""
+    return _single(lambda *a, **k: robust_resection_p3p_adaptive(*a, **k)[0], generator,
+                   bearings, x2d, X3d, K, valid, w, h, **kw)
+
+
 def robust_resection_angular_batch(generators, bearings, X3d, valid, n_samples=1024,
                                    precision_sq=math.inf, gumbel=None):
     """AC-RANSAC P3P with the angular residual, for non-pinhole views."""

@@ -25,8 +25,6 @@ if not logger.handlers:
     logger.setLevel(logging.INFO)
 
 log_info = logger.info
-log_warning = logger.warning
-log_error = logger.error
 
 stage_times = {}
 
@@ -104,47 +102,32 @@ def format_stage_times(times=None):
     return "\n".join(f"  {k:<18s} {v:9.3f} s" for k, v in times.items())
 
 
-class Profiler:
-    """A torch.profiler session (CPU activity, and CUDA activity when a card
-    is present) written as a Chrome trace into `logdir` when it stops:
-    logdir/omt_trace_<pid>.json, viewed in chrome://tracing or Perfetto."""
-
-    def __init__(self, logdir):
-        self.logdir = logdir
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self.prof = torch.profiler.profile(activities=acts)
-        self.path = None
-
-    def start(self):
-        os.makedirs(self.logdir, exist_ok=True)
-        self.prof.start()
-        return self
-
-    def stop(self):
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        self.prof.stop()
-        self.path = os.path.join(self.logdir, f"omt_trace_{os.getpid()}.json")
-        self.prof.export_chrome_trace(self.path)
-        return self.path
-
-    def __enter__(self):
-        return self.start()
-
-    def __exit__(self, *exc):
-        self.stop()
-        return False
+_session = None
 
 
 def start_profiler(logdir):
-    """Start a profiler session that stop_profiler(session) writes into
-    logdir.  Returns the session."""
+    """Start a torch.profiler session (CPU activity, and CUDA activity when
+    a card is present) that stop_profiler writes into logdir."""
+    global _session
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    _session = (torch.profiler.profile(activities=acts), logdir)
+    _session[0].start()
     log_info(f"torch profiler trace -> {logdir}")
-    return Profiler(logdir).start()
 
 
-def stop_profiler(session):
-    """Stop the session and write its trace; returns the trace's path."""
-    return session.stop()
+def stop_profiler():
+    """Stop the session and write its Chrome trace,
+    logdir/omt_trace_<pid>.json (chrome://tracing or Perfetto); returns
+    the trace's path."""
+    global _session
+    prof, logdir = _session
+    _session = None
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    prof.stop()
+    path = os.path.join(logdir, f"omt_trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return path

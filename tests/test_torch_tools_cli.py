@@ -227,3 +227,26 @@ def test_refine_more_devices_raises(files, tmp_path):
     _, sp, _, _, _ = files
     with pytest.raises(ValueError, match="item 9"):
         cli.main(["refine", "-i", sp, "-o", str(tmp_path / "r.json"), "-d", "2"] + DEV)
+
+
+def test_timer_and_progress_match_reference(caplog):
+    """Progress logs the same lines as the reference's at every 10% of its
+    items, and a logging Timer the same 'name: <seconds>s' line."""
+    import logging
+
+    from openmvg_torch.utils import logging as tlog
+    from openmvg_tpu.utils import logging as jlog
+
+    said = []
+    for mod, name in ((jlog, "openmvg_tpu"), (tlog, "openmvg_torch")):
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger=name):
+            p = mod.Progress(37, "tracks")
+            for n in (1, 3, 2, 7, 1, 1, 9, 13):
+                p.update(n)
+            with mod.Timer("block", log=True) as t:
+                pass
+        lines = [r.getMessage() for r in caplog.records if r.name == name]
+        assert lines[-1] == f"block: {t.elapsed:.3f}s" and t.elapsed >= 0
+        said.append(lines[:-1])
+    assert said[0] == said[1] and len(said[0]) == 5
