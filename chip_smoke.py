@@ -106,8 +106,7 @@ last line is printed):
             1e-12 (1 + S)); refine -n 30 with K3 off, then with
             OMT_FUSED_SMATVEC=1 (the cost does not rise, rmse within 1e-3 px
             of the input's and of each other, eval position_rmse <= 0.006, K2
-            in both, K3 only in the second), refine -d 2 exits non-zero
-            naming ROADMAP item 9; cluster -n 4 (4 files whose views cover the
+            in both, K3 only in the second); cluster -n 4 (4 files whose views cover the
             posed views, K2; then the k-means Lloyd sums against
             seg_sum_plain within 1e-5 (1 + S)); geo-register --use_priors on the renderer's
             centres under a planted similarity into ECEF (scale 10, 10%
@@ -134,6 +133,34 @@ last line is printed):
             the eval alignment);
             --profile DIR on refine, in a process of its own (one trace
             naming K2's kernel and the bundle_adjustment stage)
+  multigpu  the sharded paths (openmvg_torch/parallel) on the card, after
+            tools and on its 100-view INCREMENTAL scene, with
+            OMT_FUSED_SMATVEC=1 set (K3 must stay off when sharded), each
+            run with every kernel's count set to 0 just before and read just
+            after, on every rank: (a) refine -d 4 -n 30 through the CLI
+            twice, plainly (one NCCL rank a card, so as many ranks as cards,
+            the clamp printed) and with OMT_DIST_BACKEND=gloo (4 ranks sharing
+            the card): the cost does not rise, eval position_rmse <= 0.006
+            and within 1e-4 of the single-card refine's, K2 launched on every
+            rank, K3 on none; then one spawned group of 4 gloo ranks on the
+            card: (b) both sharded BA modes against the same solve in one
+            rank on the card, in float64 on the reference test's
+            ring_scene(8, 61) with 15 LM iterations (cost within 1e-6
+            relative, rotvec within 1e-8) and in float32 on big_ba_problem's
+            default (256 poses, 300,000 points, 4.2 M observations; 3 LM
+            steps: the costs within 1e-5 relative before the first step and
+            1e-4 after each, the accepts printed), K2 on every rank; (c) matches
+            --ring_matching on with the pipeline's descriptors and pairs: the
+            file byte-identical to the single rank's, K1 once a matched ring
+            step (4 - r steps on rank r); (d) scaling-bench -s 1,2,4, its
+            JSON printed as ranks sharing one card through the host, which
+            is no multi-card scaling; and K1 and K2 at the shapes these
+            paths give them, against their plain versions and timed beside
+            the bound and the library call (multigpu_shapes): mesh rank 0's
+            shard of big_ba_problem in each mode, its point sums (k 3 and 9
+            over 300,000 or 75,000 points) through its point plan within
+            1e-5 (1 + S) and its fused camera sums, and K1 on one rank's 256
+            pairs of scaling-bench's 1,024 x 1,024 x 128 float32 stack
   camera3   the one-command main path as users run it, every flag at its
             default but the focal: pipeline -i images -o run -f <focal>
             (camera model 3 PINHOLE_RADIAL_K3, NORMAL, EXHAUSTIVE pairs,
@@ -211,8 +238,10 @@ matchers phase as launches_matchers and K2's in vlad as launches_vlad,
 with K1's check and times at known-poses' shape and at AKAZE_FLOAT's
 64-d float32 shape, K2's at the VLAD Lloyd sums' shape, the tools phase's
 shapes as tools_shapes (K1 at bench-ann's, K2 at localize's camera sums
-and at cluster's Lloyd sums), and K2's and K3's
-launches in the spherical phase;
+and at cluster's Lloyd sums), K2's and K3's
+launches in the spherical phase, and every kernel's in each multigpu run
+by rank as launches_multigpu, with K1's and K2's checks and times at the
+multigpu phase's shapes as multigpu_shapes;
 every phase's stage and engine seconds, and each matchers, describers,
 spherical, cubify, vo and tools step's seconds and readings), then
 nvidia-smi's name and power limit, then
@@ -2239,6 +2268,23 @@ def k2_at_cluster(seg_sum, scene, posed, dev):
                 library_ms=lib_ms, bound_ms=bound, bound_by=by)
 
 
+def k1_f32_check(got, ref, where):
+    """K1's float32 outputs against the plain version's: d1 and d2 within
+    1e-4 (1 + |d|), idx1 equal away from near-ties.  Returns the largest
+    |d - d_plain|; fails the run otherwise."""
+    err = 0.0
+    for x, y, what in zip(got[:2], ref[:2], ("d1", "d2")):
+        bad = (x - y).abs() > 1e-4 * (1 + y.abs())
+        if bad.any():
+            fail(f"{where}: {what} outside 1e-4 (1 + |d|) in {int(bad.sum())} entries")
+        err = max(err, float((x - y).abs().max()))
+    near_tie = (ref[1] - ref[0]) <= 2e-4 * (1 + ref[0])
+    bad = (got[2] != ref[2]) & ~near_tie
+    if bad.any():
+        fail(f"{where}: {int(bad.sum())} indices differ away from a tie")
+    return err
+
+
 def k1_at_bench_ann(two_nn, dev):
     """K1 at bench-ann's brute-force shape: the SIFT source's query and
     base descriptors (float32, D 128), built as cmd_bench_ann builds them,
@@ -2252,19 +2298,8 @@ def k1_at_bench_ann(two_nn, dev):
     base, query = cli.ann_sift_descriptors(np.random.default_rng(0), 4096, dev)
     a = torch.as_tensor(query, device=dev)
     b = torch.as_tensor(base, device=dev)
-    got = two_nn.two_nn_fused(a, b)
-    ref = two_nn.two_nn_plain(a, b)
-    err = 0.0
-    for x, y, what in zip(got[:2], ref[:2], ("d1", "d2")):
-        bad = (x - y).abs() > 1e-4 * (1 + y.abs())
-        if bad.any():
-            fail(f"[tools] K1 at bench-ann's shape: {what} outside 1e-4 (1 + |d|) in "
-                 f"{int(bad.sum())} entries")
-        err = max(err, float((x - y).abs().max()))
-    near_tie = (ref[1] - ref[0]) <= 2e-4 * (1 + ref[0])
-    bad = (got[2] != ref[2]) & ~near_tie
-    if bad.any():
-        fail(f"[tools] K1 at bench-ann's shape: {int(bad.sum())} indices differ away from a tie")
+    err = k1_f32_check(two_nn.two_nn_fused(a, b), two_nn.two_nn_plain(a, b),
+                       "[tools] K1 at bench-ann's shape")
     ms = cuda_ms(lambda: two_nn.two_nn_fused(a, b), 20)
     plain_ms = cuda_ms(lambda: two_nn.two_nn_plain(a, b), 20)
     lib_ms = cuda_ms(lambda: library_two_nn(a, b), 20)
@@ -2523,13 +2558,6 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     if abs(refined["refine"] - refined["refine_fused"]) > 1e-3:
         fail(f"[tools] refine's rmse {refined['refine']} and the fused run's "
              f"{refined['refine_fused']} differ by more than 1e-3 px")
-    r = subprocess.run([sys.executable, "-m", "openmvg_torch.cli", "refine", "-i", scene_path,
-                        "-o", os.path.join(tw, "d2.json"), "-d", "2"],
-                       capture_output=True, text=True, timeout=300,
-                       cwd=os.path.dirname(os.path.abspath(__file__)))
-    if r.returncode == 0 or "item 9" not in r.stderr:
-        fail(f"[tools] refine -d 2 exited {r.returncode} without the item-9 message")
-    log(f"[tools] refine -d 2 exits {r.returncode}: {r.stderr.strip().splitlines()[-1]}")
 
     # 3. cluster -n 4
     cdir = os.path.join(tw, "clusters")
@@ -2787,6 +2815,399 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
 
     out["launches_by_step"] = launches_by_step   # the profile step runs in its own process
     out["s"] = sum(r["s"] for r in out.values() if isinstance(r, dict) and "s" in r)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# multigpu: the sharded paths (openmvg_torch/parallel) on the card
+# ---------------------------------------------------------------------------
+
+MG_RANKS = 4
+MG_TIMEOUT = 420          # seconds a spawned group may take
+BIG_BA_STEPS = 3
+BIG_BA_COST_REL = 1e-4    # float32 LM steps of 4.2 M observations: see phase_multigpu
+
+
+def ring_problem_fields(n_views=8, n_points=61, seed=2, noise_X=0.02):
+    """The float64 problem of the reference's point-sharded test: every
+    visible point of ring_scene(n_views, n_points, seed) observed, the
+    points perturbed by noise_X (the draws of tests/test_ba.py's
+    scene_from_ring with seed + 1), as numpy fields."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.sfm.scene import Scene
+    from openmvg_torch.utils.synthetic import ring_scene
+
+    s = ring_scene(n_views=n_views, n_points=n_points, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    sc = Scene()
+    sc.view_filename = [f"v{i}.jpg" for i in range(n_views)]
+    sc.view_intrinsic = np.zeros(n_views, np.int32)
+    sc.view_pose = np.arange(n_views, dtype=np.int32)
+    sc.view_wh = np.tile([[1000, 1000]], (n_views, 1)).astype(np.int32)
+    sc.cameras = cm.make_pinhole(1000, 1000, s.K[0, 0, 0], s.K[0, 0, 2], s.K[0, 1, 2])
+    sc.pose_valid = np.ones(n_views, bool)
+    sc.pose_R, sc.pose_C = s.R.copy(), s.C.copy()
+    sc.X = s.X + rng.normal(scale=noise_X, size=s.X.shape)
+    sc.X_valid = np.ones(n_points, bool)
+    ov, ol = np.nonzero(s.visible)
+    sc.obs_landmark, sc.obs_view = ol.astype(np.int32), ov.astype(np.int32)
+    sc.obs_x, sc.obs_feat = s.x[ov, ol], ol.astype(np.int32)
+    sc.obs_valid = np.ones(len(ol), bool)
+    p, _ = ba.problem_from_scene(sc, dtype=torch.float64)
+    f = {k: getattr(p, k).numpy() for k in ba.BAProblem._fields[:16]}
+    f["pt_obs"] = tuple(None if a is None else a.numpy() for a in p.pt_obs)
+    return f
+
+
+def _big_ba_steps(p, cfg, steps, group=None, shard_points=False):
+    """The cost before and after each of `steps` LM steps, and the accepts."""
+    import torch
+
+    from openmvg_torch.sfm import ba
+
+    p = ba.with_plans(p)
+    fast = ba.cam_fast_ok(p)
+    lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
+    costs = [float(ba.robust_cost(p, cfg, fast, group))]
+    accepts = []
+    for _ in range(steps):
+        p, lam, cost, acc = ba.lm_step(p, lam, cfg, fast, group, shard_points)
+        costs.append(float(cost))
+        accepts.append(bool(acc))
+    return p, costs, accepts
+
+
+def _multigpu_ranks(rank, n, tasks):
+    """A spawned rank of the multigpu phase: each task with every kernel's
+    count set to 0 just before and read just after.  Returns {task: dict(s,
+    launches, ...)}."""
+    import torch
+
+    from openmvg_torch.ops import seg_sum, smatvec, two_nn
+    from openmvg_torch.parallel import dist_ba, runtime
+    from openmvg_torch.parallel.mesh import make_mesh
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.utils.synthetic import big_ba_problem
+
+    mods = (two_nn, seg_sum, smatvec)
+    mesh = make_mesh(n)
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    out = {}
+    for name, kind, arg in tasks:
+        for m in mods:
+            m.LAUNCHES = 0
+        sync()
+        t0 = time.perf_counter()
+        rec = {}
+        if kind == "cli":
+            r = runtime.run_cli(rank, n, arg)
+            rec.update(rc=r["rc"], stdout=r["stdout"])
+        elif kind == "ba_small":
+            p = ba.problem_from_reference(arg["fields"])
+            fn = dist_ba.adjust_distributed if arg["mode"] == "obs" else \
+                dist_ba.adjust_point_sharded
+            q, cost = fn(p, mesh, ba.BAConfig(max_iterations=15))
+            rec.update(cost=cost, rotvec=q.rotvec.numpy(), X=q.X.numpy())
+        else:                       # ba_big: the host problem made here, its shard on the card
+            p, O = big_ba_problem(**arg.get("size", {}))
+            if arg["mode"] == "obs":
+                local = dist_ba.local_shard(dist_ba.pad_problem(p, n), mesh, False)
+            else:
+                local, _ = dist_ba.local_point_shard(p, mesh)
+            rows = int(local.obs_pose.shape[0])
+            del p
+            _, costs, accepts = _big_ba_steps(local, ba.BAConfig(), BIG_BA_STEPS, mesh.group,
+                                              arg["mode"] == "point")
+            rec.update(obs=O, local_rows=rows, costs=costs, accepts=accepts,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+                       if mesh.device.type == "cuda" else None)
+        sync()
+        rec["s"] = time.perf_counter() - t0
+        rec["launches"] = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in mods}
+        out[name] = rec
+    return out
+
+
+def multigpu_shapes(seg_sum, two_nn, p, dev):
+    """K1 and K2 at the shapes the sharded paths give them, against their
+    plain versions on the same inputs, each timed beside its bound and its
+    library call.  K2: mesh rank 0's shard of big_ba_problem `p` over
+    MG_RANKS ranks in each sharded mode, as the ranks build it
+    (dist_ba.local_shard / local_point_shard, ba.with_plans), at its first
+    LM step's Jacobians: the point sums J_x^T r (k 3) and J_x^T J_x (k 9)
+    through the shard's point_plan over its points (all 300,000 when
+    observation-sharded, 75,000 when point-sharded), within 1e-5 (1 + S)
+    (seg_sum_check), and the fused camera sums on the same rows (camera_check).
+    K1: one rank's launch of scaling-bench -s 1,2,4 (pairs_per_device 256
+    pairs of its 16 x 1,024 x 128 float32 stack, built as
+    measure_weak_scaling builds it) within 1e-4 (1 + |d|), indices equal
+    away from near-ties (k1_f32_check)."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.parallel import dist_ba
+    from openmvg_torch.parallel.mesh import Mesh
+    from openmvg_torch.sfm import ba
+
+    out = {}
+    rank0 = Mesh(group=None, ranks=tuple(range(MG_RANKS)), rank=0, device=torch.device(dev))
+    cfg = ba.BAConfig()
+    shards = (("obs", lambda: dist_ba.local_shard(dist_ba.pad_problem(p, MG_RANKS), rank0,
+                                                   False)),
+              ("point", lambda: dist_ba.local_point_shard(p, rank0)[0]))
+    for mode, make in shards:
+        q = ba.with_plans(make())
+        r, Jp6, Ji8, Jx3 = ba.jacobians(q, cfg, ba.cam_fast_ok(q))
+        O, L, P, I = Jx3.shape[0], q.X.shape[0], q.rotvec.shape[0], q.intr_params.shape[0]
+        ids, plan = q.obs_point, q.point_plan
+        for name, vals in (("point_jtr_k3", ba._brmatvec(Jx3, r).contiguous()),
+                           ("point_jtj_k9", ba._outer_flat(Jx3).contiguous())):
+            got = seg_sum.seg_sum(vals, ids, L, plan)
+            torch.cuda.synchronize()
+            err = seg_sum_check(seg_sum, got, vals, ids, L, 1e-5)
+            if err is None:
+                fail(f"[multigpu] seg_sum {name} on a {mode}-sharded rank's rows: outside "
+                     "1e-5 (1 + S)")
+            k = vals.shape[1]
+            ms = cuda_ms(lambda: seg_sum.seg_sum(vals, ids, L, plan), 20)
+            plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(vals, ids, L), 5)
+            lib_ms = cuda_ms(lambda: library_seg_sum(vals, ids, L), 5)
+            bound, by = seg_sum_bound_ms(O, k, L, vals.element_size())
+            log(f"[multigpu] seg_sum {name}, {mode}-sharded rank 0 (O {O}, k {k}, num {L}): "
+                f"max |err| {err:.3g} within 1e-5 (1 + S); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"{bound / ms * 100:.2f}% of the bound")
+            out[f"{mode}_{name}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                         bound_ms=bound, bound_by=by, max_abs_err=err, O=O,
+                                         k=k, num=L)
+        args = (Jp6, Ji8, (-r).contiguous(), q.obs_pose, q.obs_intr, P, I)
+        for kind in ("jtu", "jtj"):
+            got = camera_call(seg_sum, kind, args, q.seg_plans)
+            torch.cuda.synchronize()
+            err = camera_check(seg_sum, kind, got, args, 1e-5)
+            if err is None:
+                fail(f"[multigpu] camera_{kind} on a {mode}-sharded rank's rows: outside "
+                     "1e-5 (1 + S)")
+            ms = cuda_ms(lambda: camera_call(seg_sum, kind, args, q.seg_plans), 20)
+            plain_fn = seg_sum.camera_jtu_plain if kind == "jtu" else seg_sum.camera_jtj_plain
+            pargs = args if kind == "jtu" else args[:2] + args[3:]
+            plain_ms = cuda_ms(lambda: plain_fn(*pargs), 5)
+            bound, by = camera_bound_ms(O, P, I, kind, Jp6.element_size())
+            log(f"[multigpu] camera_{kind}, {mode}-sharded rank 0 (O {O}, P {P}, I {I}): "
+                f"max |err| {err:.3g} within 1e-5 (1 + S); kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+                f"{bound / ms * 100:.2f}% of the bound")
+            out[f"{mode}_camera_{kind}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                                bound_ms=bound, bound_by=by, max_abs_err=err,
+                                                O=O, P=P, I=I)
+        del q, r, Jp6, Ji8, Jx3, args
+
+    rng = np.random.default_rng(0)
+    n_views, n_feats, n_pairs = 16, 1024, 256
+    descs = torch.as_tensor(rng.integers(0, 255, (n_views, n_feats, 128)).astype(np.float32),
+                            device=dev)
+    counts = torch.full((n_views,), n_feats, dtype=torch.int32, device=dev)
+    all_pairs = np.asarray([(i, j) for i in range(n_views) for j in range(i + 1, n_views)])
+    pairs = torch.as_tensor(np.resize(all_pairs, (n_pairs, 2)).astype(np.int32), device=dev)
+    err = k1_f32_check(two_nn.two_nn_batch(descs, counts, pairs),
+                       two_nn.two_nn_batch_plain(descs, counts, pairs),
+                       "[multigpu] K1 at scaling-bench's shape")
+    ms = cuda_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 10)
+    plain_ms = cuda_ms(lambda: two_nn.two_nn_batch_plain(descs, counts, pairs), 3, 1)
+    a_all, b_all = descs[pairs[:, 0].long()], descs[pairs[:, 1].long()]
+    lib_ms = cuda_ms(lambda: library_two_nn(a_all, b_all), 3, 1)
+    bound, by = two_nn_bound_ms(descs, counts, pairs, n_pairs * n_feats, int8=False)
+    log(f"[multigpu] K1 at scaling-bench's shape ({n_pairs} pairs of {n_feats} x {n_feats}, "
+        f"D 128 float32, one launch): max |err| {err:.3g} within 1e-4 (1 + |d|); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cdist + topk {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}); {bound / ms * 100:.2f}% of the bound")
+    out["scaling_k1"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                             bound_by=by, max_abs_err=err, pairs=n_pairs, n=n_feats, dim=128)
+    return out
+
+
+def phase_multigpu(kernel_mods, run, srun, trun, dev="cuda"):
+    """The sharded paths on the card (the gates of the module note): (a)
+    refine -d 4 through the CLI as a NCCL world of one and over 4 gloo ranks
+    sharing the card; then one spawned group of 4 gloo ranks on the card
+    for (b) both sharded BA modes against the same solve in one rank, (c)
+    matches --ring_matching on and (d) scaling-bench -s 1,2,4.  K3 stays
+    off in every sharded run with OMT_FUSED_SMATVEC=1 set."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch.ops import seg_sum, two_nn
+    from openmvg_torch.parallel import runtime
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.utils.synthetic import big_ba_problem
+
+    t_all = time.perf_counter()
+    md, gtdir = run["md"], run["gtdir"]
+    scene_path = os.path.join(srun["recon"], "sfm_data.json")
+    tw = os.path.join(run["work"], "multigpu")
+    os.makedirs(tw, exist_ok=True)
+    single = trun["refine"]
+    out = {}
+    saved = {k: os.environ.get(k) for k in ("OMT_FUSED_SMATVEC", "OMT_DIST_BACKEND")}
+    os.environ["OMT_FUSED_SMATVEC"] = "1"
+    try:
+        # (a) refine -d 4 through the CLI, twice
+        for tag, backend in (("refine_d4_nccl", None), ("refine_d4_gloo", "gloo")):
+            if backend:
+                os.environ["OMT_DIST_BACKEND"] = backend
+            else:
+                os.environ.pop("OMT_DIST_BACKEND", None)
+            r = os.path.join(tw, f"{tag}.json")
+            secs, printed, launches = run_stages(
+                kernel_mods, [("refine", ["refine", "-i", scene_path, "-o", r, "-n", "30",
+                                          "-d", str(MG_RANKS)]),
+                              ("eval", ["eval", "-i", r, "-g", gtdir])])
+            text = printed["refine"].getvalue()
+            m = re.search(r"distributed BA over (\d+) devices: cost=(\S+)", text)
+            ranks = [json.loads(x) for x in
+                     re.findall(r"rank \d+ \(\w+\) kernel launches: (\{.*\})", text)]
+            clamp = [ln for ln in text.splitlines() if ln.startswith("refine -d")]
+            stats = json.loads(printed["eval"].getvalue())
+            if m is None:
+                fail(f"[multigpu] {tag}: no distributed line in {text!r}")
+            n, cost = int(m.group(1)), float(m.group(2))
+            rec = out[tag] = dict(s=sum(secs.values()), refine_s=secs["refine"], ranks=n,
+                                  cost=cost, cost0=single["cost0"],
+                                  position_rmse=stats.get("position_rmse"),
+                                  single_position_rmse=single["position_rmse"],
+                                  rank_launches=ranks, parent_launches=launches,
+                                  clamp=clamp[0] if clamp else None)
+            log(f"[multigpu] {tag}: {n} rank(s){', ' + clamp[0] if clamp else ''}; cost "
+                f"{single['cost0']:.4f} -> {cost:.4f}, position_rmse "
+                f"{stats.get('position_rmse')} (single card {single['position_rmse']}), "
+                f"{secs['refine']:.2f} s; launches by rank {ranks}")
+            want = torch.cuda.device_count() if backend is None else MG_RANKS
+            if n != min(want, MG_RANKS) or len(ranks) != n:
+                fail(f"[multigpu] {tag} ran {n} rank(s) ({len(ranks)} reported), not {want}")
+            if backend is None and n < MG_RANKS and not clamp:
+                fail(f"[multigpu] {tag} clamped to {n} without printing the clamp")
+            if not cost <= single["cost0"] + 5e-5:
+                fail(f"[multigpu] {tag} raised the cost from {single['cost0']} to {cost}")
+            pr = stats.get("position_rmse")
+            if not stats.get("ok") or not pr <= 0.006 or \
+                    not abs(pr - single["position_rmse"]) <= 1e-4:
+                fail(f"[multigpu] {tag} position_rmse {pr}: above 0.006 or more than 1e-4 "
+                     f"from the single card's {single['position_rmse']}")
+            if any(x["seg_sum"] < 1 for x in ranks):
+                fail(f"[multigpu] {tag}: a rank did not launch K2: {ranks}")
+            if any(x["smatvec"] for x in ranks) or launches["smatvec"]:
+                fail(f"[multigpu] {tag}: K3 launched in a sharded solve")
+        os.environ["OMT_DIST_BACKEND"] = "gloo"
+
+        # (b), (c), (d): one group of 4 gloo ranks on the card
+        small = ring_problem_fields()
+        ring_out = os.path.join(tw, "matches.ring.bin")
+        tasks = [("ba_small_obs", "ba_small", dict(mode="obs", fields=small)),
+                 ("ba_small_point", "ba_small", dict(mode="point", fields=small)),
+                 ("ba_big_obs", "ba_big", dict(mode="obs")),
+                 ("ba_big_point", "ba_big", dict(mode="point")),
+                 ("ring", "cli", ["matches", "-i", run["sfm"], "-o", ring_out, "-d", md,
+                                  "-p", os.path.join(md, "pairs.txt"), "-r", "0.8",
+                                  "--ring_matching", "on"]),
+                 ("scaling", "cli", ["scaling-bench", "-s", "1,2,4"])]
+        t0 = time.perf_counter()
+        res = runtime.spawn(_multigpu_ranks, MG_RANKS, device=dev, backend="gloo",
+                            args=(tasks,), timeout=MG_TIMEOUT)
+        out["group_s"] = time.perf_counter() - t0
+        for name, _, _ in tasks:
+            per = [r[name]["launches"] for r in res]
+            out.setdefault("task_s", {})[name] = [r[name]["s"] for r in res]
+            out.setdefault("rank_launches", {})[name] = per
+            if any(x["smatvec"] for x in per):
+                fail(f"[multigpu] {name}: K3 launched in a sharded run")
+        log(f"[multigpu] one group of {MG_RANKS} gloo ranks on the card: "
+            f"{out['group_s']:.1f} s; seconds by task and rank {out['task_s']}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (b) against the same solve in one rank on the card
+    cfg = ba.BAConfig(max_iterations=15)
+    one, cost1, _ = ba.adjust(ba.problem_from_reference(small, torch.float64, dev), cfg)
+    for mode in ("obs", "point"):
+        got = res[0][f"ba_small_{mode}"]
+        rel = abs(got["cost"] - cost1) / max(cost1, 1e-12)    # the reference test's rule
+        drot = float(np.abs(got["rotvec"] - one.rotvec.cpu().numpy()).max())
+        dX = float(np.abs(got["X"][:one.X.shape[0]] - one.X.cpu().numpy()).max())
+        out[f"ba_small_{mode}"] = dict(cost=got["cost"], cost_single=cost1, cost_rel=rel,
+                                       rotvec_max_abs=drot, X_max_abs=dX)
+        k2 = [x["seg_sum"] for x in out["rank_launches"][f"ba_small_{mode}"]]
+        log(f"[multigpu] ring_scene(8, 61) float64, {mode}-sharded over {MG_RANKS} ranks: "
+            f"cost {got['cost']:.10g} against one rank's {cost1:.10g} (rel {rel:.2e}), "
+            f"rotvec within {drot:.2e}, X within {dX:.2e}; K2 by rank {k2}")
+        if not rel < 1e-6 or not drot < 1e-8:
+            fail(f"[multigpu] {mode}-sharded float64 solve off the single one: cost rel "
+                 f"{rel:.2e} (gate 1e-6), rotvec {drot:.2e} (gate 1e-8)")
+        if min(k2) < 1:
+            fail(f"[multigpu] {mode}-sharded: a rank did not launch K2")
+    p, O = big_ba_problem(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, costs1, acc1 = _big_ba_steps(p, ba.BAConfig(), BIG_BA_STEPS)
+    torch.cuda.synchronize()
+    out["ba_big_single_s"] = time.perf_counter() - t0
+    # K1 and K2 at the sharded paths' shapes, against their plain versions
+    out["shapes"] = multigpu_shapes(seg_sum, two_nn, p, dev)
+    del p
+    for mode in ("obs", "point"):
+        got = [r[f"ba_big_{mode}"] for r in res]
+        costs, acc = got[0]["costs"], got[0]["accepts"]
+        rel = [abs(a - b) / b for a, b in zip(costs, costs1)]
+        k2 = [x["seg_sum"] for x in out["rank_launches"][f"ba_big_{mode}"]]
+        out[f"ba_big_{mode}"] = dict(obs=O, local_rows=[g["local_rows"] for g in got],
+                                     costs=costs, costs_single=costs1, accepts=acc,
+                                     accepts_single=acc1, cost_rel=rel,
+                                     s=[g["s"] for g in got],
+                                     peak_gib=[g["peak_gib"] for g in got])
+        log(f"[multigpu] big_ba_problem (256 poses, 300,000 points, {O} observations, "
+            f"float32), {mode}-sharded over {MG_RANKS} ranks: rows by rank "
+            f"{[g['local_rows'] for g in got]}, costs {costs} against one rank's {costs1} "
+            f"(rel {[f'{x:.2e}' for x in rel]}), accepts {acc} / {acc1}, K2 by rank {k2}, "
+            f"{max(g['s'] for g in got):.1f} s against {out['ba_big_single_s']:.1f} s")
+        # an accept near the float32 floor may flip, so the accepts are printed
+        if not rel[0] < 1e-5 or not max(rel) < BIG_BA_COST_REL:
+            fail(f"[multigpu] {mode}-sharded float32 steps off the single solve: cost rel "
+                 f"{rel} (gates 1e-5 before the first step, {BIG_BA_COST_REL} after)")
+        if min(k2) < 1:
+            fail(f"[multigpu] big {mode}-sharded: a rank did not launch K2")
+
+    # (c) the ring's file against the single rank's, K1 once a ring step
+    with open(ring_out, "rb") as f1, open(os.path.join(md, "matches.putative.bin"), "rb") as f2:
+        same = f1.read() == f2.read()
+    k1 = [x["two_nn"] for x in out["rank_launches"]["ring"]]
+    steps = [MG_RANKS - r for r in range(MG_RANKS)]
+    out["ring"] = dict(byte_identical=same, k1_by_rank=k1, matched_steps=steps,
+                       s=max(out["task_s"]["ring"]), rc=[r["ring"]["rc"] for r in res])
+    log(f"[multigpu] matches --ring_matching on over {MG_RANKS} ranks: "
+        f"{res[0]['ring']['stdout'].strip().splitlines()}; file byte-identical to the "
+        f"single rank's: {same}; K1 launches by rank {k1} (blocks matched {steps})")
+    if out["ring"]["rc"] != [0] * MG_RANKS or not same:
+        fail("[multigpu] the ring's matches file differs from the single rank's")
+    if k1 != steps:
+        fail(f"[multigpu] K1 launches by rank {k1}, not one a matched ring step {steps}")
+
+    # (d) scaling-bench over ranks sharing the card
+    text = res[0]["scaling"]["stdout"]
+    out["scaling"] = json.loads(text[text.index("{"):])
+    log(f"[multigpu] scaling-bench -s 1,2,4 over {MG_RANKS} gloo ranks SHARING ONE CARD through "
+        "the host (the harness's overheads, no multi-card scaling): "
+        + json.dumps(out["scaling"]))
+    if set(out["scaling"]["ba_point_sharded"]) != {"1", "2", "4"}:
+        fail(f"[multigpu] scaling-bench sizes {list(out['scaling']['ba_point_sharded'])}")
+    out["s"] = time.perf_counter() - t_all
+    log(f"[multigpu] phase {out['s']:.1f} s")
     return out
 
 
@@ -3069,6 +3490,7 @@ def main():
         strun = phase_stellar(mods, run, args.views)
         mrun = phase_matchers(mods, run, srun, args.views)
         trun = phase_tools(mods, run, srun, args.views)
+        mgrun = phase_multigpu(mods, run, srun, trun)
         c3_views = min(args.views, 24)
         log(f"[camera3] CUT: {c3_views} views of {args.size}^2, "
             f"{c3_views * (c3_views - 1) // 2} exhaustive pairs (the realistic scale is "
@@ -3089,6 +3511,14 @@ def main():
                 "launches_camera3": c3run["launches"][name],
                 "launches_tools": {k: v[name] for k, v in trun["launches_by_step"].items()}}
 
+    def multigpu_launches(name):
+        """Each multigpu run's launches, by rank (the NCCL world of one runs
+        in this process)."""
+        runs = {t: [x[name] for x in mgrun[t]["rank_launches"]]
+                for t in ("refine_d4_nccl", "refine_d4_gloo")}
+        runs.update({t: [x[name] for x in v] for t, v in mgrun["rank_launches"].items()})
+        return runs
+
     def evals(r):
         return {k: v for k, v in r["stats"].items() if not isinstance(v, dict)}
 
@@ -3107,6 +3537,8 @@ def main():
         "known_poses_shape": mrun["known_poses"]["k1_at_shape"],
         "akaze_float_shape": drun["AKAZE_FLOAT"]["k1_at_shape"],
         "tools_shapes": {"bench_ann": trun["k1_at_bench_ann"]},
+        "launches_multigpu": multigpu_launches("two_nn"),
+        "multigpu_shapes": {"scaling_bench": mgrun["shapes"]["scaling_k1"]},
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
@@ -3124,6 +3556,8 @@ def main():
                          "cluster_lloyd": trun["k2_at_cluster"]},
         "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["seg_sum"],
         "launches_spherical_global": sprun["GLOBAL"]["launches"]["seg_sum"],
+        "launches_multigpu": multigpu_launches("seg_sum"),
+        "multigpu_shapes": {k: v for k, v in mgrun["shapes"].items() if k != "scaling_k1"},
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
@@ -3139,6 +3573,7 @@ def main():
         **new_paths("smatvec"),
         "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["smatvec"],
         "launches_spherical_global": sprun["GLOBAL"]["launches"]["smatvec"],
+        "launches_multigpu": multigpu_launches("smatvec"),
     }], "pipeline_s": run["secs"], "sfm_s": srun["secs"], "engine_s": srun["engine"],
         "polish_steps": srun["polish_steps"], "eval": evals(srun),
         "sfm2_s": v2run["secs"], "sfm2_engine_s": v2run["engine"],
@@ -3158,7 +3593,8 @@ def main():
         "spherical": sprun, "cubify": curun, "vo": vorun,
         "tools": {k: v for k, v in trun.items()
                   if k not in ("launches_by_step", "k2_at_localize", "k2_at_cluster",
-                               "k1_at_bench_ann")}}
+                               "k1_at_bench_ann")},
+        "multigpu": {k: v for k, v in mgrun.items() if k not in ("rank_launches", "shapes")}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))
     print(smi)

@@ -22,11 +22,14 @@ counterpart there:
              filter, tracks, bundle adjustment, f64 polish, filters, the
              incremental and global engines, colorisation, evaluation,
              monocular VO
+  parallel/  torch.distributed runtime (one process a rank), meshes,
+             observation- and point-sharded bundle adjustment, ring
+             matching, the partitioner and the scaling harness
   utils/     pair graphs, device selection, synthetic datasets, build,
              stage timers, deadline
   cli.py     init / features / pairs / matches / filter / sfm / color /
              eval / pipeline, and the other commands listed in its
-             docstring (cubify, vo, ...)
+             docstring (cubify, vo, refine -d N, scaling-bench, ...)
 
 It imports torch, numpy and scipy; never jax and never openmvg_tpu.
 """

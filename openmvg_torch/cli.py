@@ -29,13 +29,23 @@ one-command pipeline and eval).
                                             frustums webgl undistorted json bin ply)
   localize  main_SfM_Localization.cpp      (query images in a reconstruction)
   cluster   main_ComputeClusters.cpp       (k-means of the camera centres)
-  refine    Bundle_Adjustment_Ceres        (standalone BA of a scene; one card)
+  refine    Bundle_Adjustment_Ceres        (standalone BA of a scene; -d N shards it
+                                            over N ranks, point blocks apart)
   geo-register registration_to_exif_gps_position.cpp (LMedS similarity)
   harmonize software/colorHarmonize        (per-image gain and offset; PNG)
   frustum-filter, change-origin, list-pairs, convert-matches, matches2tracks,
   split-matches, export-keypoints, export-matches, export-tracks,
   retrieval-quality, bench-ann: the small tools of software/SfM and
   software/Localization, as in the reference
+  scaling-bench                            (the sharded paths' overhead over
+                                            mesh prefixes of the world)
+
+Several ranks (parallel/runtime.py): refine -d N starts its own ranks, one
+a card over NCCL, or N sharing the cards with OMT_DIST_BACKEND=gloo (always
+gloo with --device cpu).  matches and scaling-bench run on every rank of
+the world they are launched in (torchrun, the OMT_COORDINATOR /
+OMT_NUM_PROCESSES / OMT_PROCESS_ID variables, or runtime.spawn of
+runtime.run_cli); rank 0 writes and prints.
 
 --profile DIR (before the subcommand), or OMT_PROFILE_DIR, records the
 command under torch.profiler and writes a Chrome trace into DIR.  A
@@ -275,16 +285,25 @@ def cmd_matches(args):
     from openmvg_torch.ops import matching
     from openmvg_torch.utils.graph import exhaustive_pairs
 
-    if args.ring_matching == "on":
-        raise NotImplementedError(
-            "ring matching streams descriptors across devices; it comes with "
-            "the multi-GPU slice of the port (ROADMAP queue 1, item 9)")
+    from openmvg_torch.parallel import runtime
+
+    rank, world = runtime.launched_world(args.device)
     scene = _load_scene(args.input_file)
     matchdir = args.matchdir or os.path.dirname(args.output_file)
     feats, descs = _load_features_for_scene(scene, matchdir)
     pairs = (load_pairs_file(args.pair_list) if args.pair_list
              else exhaustive_pairs(scene.n_views))
     kw = dict(method=matcher_of(args.nearest_matching_method))
+    # the reference's rule: ring-stream brute force over more than one rank,
+    # with auto when the descriptor stack would pass 1 GiB on each rank
+    row_bytes = max((np.asarray(d)[:1].nbytes for d in descs), default=0)
+    stack_bytes = len(descs) * max((len(d) for d in descs), default=0) * row_bytes
+    use_ring = kw["method"] == "bruteforce" and world > 1 and (
+        args.ring_matching == "on" or (args.ring_matching == "auto" and stack_bytes > 1 << 30))
+    if world > 1 and not use_ring and rank != 0:
+        return 0                 # rank 0 matches the whole list alone
+    run_pairs = (lambda d, pl: _ring_matches(d, pl, args.ratio)) if use_ring else \
+        (lambda d, pl: matching.match_descriptor_lists(d, pl, args.ratio, args.device, **kw))
     if kw["method"] == "cascade":
         # the port's own hyperplanes (seed 0) and view 0's descriptor mean
         kw["proj"] = matching.make_hash_projections(0, device=args.device)
@@ -297,17 +316,47 @@ def cmd_matches(args):
         k = args.preemptive_count
         sub = [matching.preemptive_subset(feats[v], descs[v], k)[1]
                for v in range(scene.n_views)]
-        pre = matching.match_descriptor_lists(sub, pairs, args.ratio, args.device, **kw)
+        pre = run_pairs(sub, pairs)
         thr = 0.08 * k
-        pairs = [pq for pq, m in pre.items() if len(m) >= thr]
-        print(f"preemptive: kept {len(pairs)} pairs "
-              f"(>= {thr:.0f} of {k} feats matched)")
-    out = matching.match_descriptor_lists(descs, pairs, args.ratio, args.device, **kw)
+        pairs = [pq for pq, m in pre.items() if len(m) >= thr] if pre is not None else None
+        if use_ring:
+            pairs = _from_rank0(pairs)
+        if rank == 0:
+            print(f"preemptive: kept {len(pairs)} pairs "
+                  f"(>= {thr:.0f} of {k} feats matched)")
+    out = run_pairs(descs, pairs)
+    if rank != 0:
+        return 0
+    if use_ring:
+        print(f"ring matching over {world} ranks")
     save_matches(out, args.output_file)
     n_m = sum(len(m) for m in out.values())
     print(f"{len(out)} matched pairs, {n_m} putative matches "
           f"in {time.time() - t0:.1f}s")
     return 0
+
+
+def _ring_matches(descs, pairs, ratio):
+    """Brute-force matches of `pairs` ring-streamed over every rank of the
+    world (parallel/ring_matching.py): {(i, j): (M, 2)} on rank 0, None on
+    the others."""
+    from openmvg_torch.ops import matching
+    from openmvg_torch.parallel import runtime
+    from openmvg_torch.parallel.ring_matching import ring_match_pairs
+
+    stack, counts = matching.descriptor_stack(descs, "cpu")
+    pair_ij = np.asarray(pairs, np.int64).reshape(-1, 2)
+    res = ring_match_pairs(stack, counts, pair_ij, runtime.global_mesh(), ratio)
+    return None if res is None else matching.matches_to_dict(pair_ij, res)
+
+
+def _from_rank0(obj):
+    """Rank 0's `obj` on every rank."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def cmd_filter(args):
@@ -916,27 +965,61 @@ def cmd_bench_ann(args):
     return 0
 
 
+def _refine_rank(rank, n, path, refine, iterations):
+    """One rank of refine -d N: the scene's problem on the host, this rank's
+    point block on its device, the point-sharded LM loop.  Returns the
+    final cost, the rank's kernel launches and, on rank 0, the solved
+    parameters."""
+    from openmvg_torch.parallel import dist_ba, runtime
+    from openmvg_torch.parallel.mesh import make_mesh
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.utils.logging import stage
+
+    before = runtime.kernel_launches()
+    prob, _ = ba.problem_from_scene(_load_scene(path), refine_intrinsics=refine)
+    with stage("bundle_adjustment"):
+        out, cost = dist_ba.adjust_point_sharded(prob, make_mesh(n),
+                                                 ba.BAConfig(max_iterations=iterations))
+    launches = {k: v - before[k] for k, v in runtime.kernel_launches().items()}
+    params = {f: getattr(out, f).cpu() for f in ("rotvec", "t", "intr_params", "X")}
+    return dict(cost=cost, launches=launches, params=params if rank == 0 else None)
+
+
 def cmd_refine(args):
-    """Standalone bundle adjustment of an existing reconstruction on one
-    card (Schur-CG LM, camera sums on K2; OMT_FUSED_SMATVEC=1 takes the
-    CG matvec through K3)."""
+    """Standalone bundle adjustment of an existing reconstruction
+    (Schur-CG LM, camera sums on K2; OMT_FUSED_SMATVEC=1 takes the CG
+    matvec through K3).  -d N > 1 shards it by point blocks over N ranks
+    (parallel/dist_ba.py; K3 off), one a card over NCCL, so at most the
+    card count, or N sharing the cards over gloo with OMT_DIST_BACKEND=gloo
+    or --device cpu; each rank's kernel launches are printed."""
     from openmvg_torch.io.ply import save_scene_ply
     from openmvg_torch.io.sfm_data import save_sfm_data
     from openmvg_torch.sfm import ba
     from openmvg_torch.sfm.scene import rmse
     from openmvg_torch.utils.logging import stage
 
-    if args.devices > 1:
-        raise ValueError(
-            "refine -d N > 1 shards the bundle adjustment over several cards; it comes "
-            "with the multi-GPU slice of the port (ROADMAP queue 1, item 9)")
     scene = _load_scene(args.input_file)
     refine = ba.ADJUST_ALL if args.refine_intrinsic_config == "ADJUST_ALL" else ba.ADJUST_NONE
-    prob, maps = ba.problem_from_scene(scene, refine_intrinsics=refine, device=args.device)
     t0 = time.time()
-    with stage("bundle_adjustment"):
-        prob, cost, _ = ba.adjust(prob, ba.BAConfig(max_iterations=args.iterations))
-    print(f"BA: cost={cost:.4f}")
+    if args.devices > 1:
+        from openmvg_torch.parallel import runtime
+
+        n, backend = runtime.ranks_for(args.devices, args.device)
+        if n < args.devices:
+            print(f"refine -d {args.devices}: {torch.cuda.device_count()} CUDA card(s) and "
+                  f"one NCCL rank a card, so {n} rank(s) (OMT_DIST_BACKEND=gloo shares them)")
+        res = runtime.run_ranks(_refine_rank, n, args.device, backend,
+                                (args.input_file, refine, args.iterations))
+        prob, maps = ba.problem_from_scene(scene, refine_intrinsics=refine)
+        prob, cost = prob._replace(**res[0]["params"]), res[0]["cost"]
+        print(f"distributed BA over {n} devices: cost={cost:.4f}")
+        for r, rr in enumerate(res):
+            print(f"  rank {r} ({backend}) kernel launches: {json.dumps(rr['launches'])}")
+    else:
+        prob, maps = ba.problem_from_scene(scene, refine_intrinsics=refine, device=args.device)
+        with stage("bundle_adjustment"):
+            prob, cost, _ = ba.adjust(prob, ba.BAConfig(max_iterations=args.iterations))
+        print(f"BA: cost={cost:.4f}")
     ba.scene_from_problem(scene, prob, maps)
     os.makedirs(os.path.dirname(os.path.abspath(args.output_file)), exist_ok=True)
     save_sfm_data(scene, args.output_file)
@@ -1138,6 +1221,23 @@ def cmd_retrieval_quality(args):
     return 0
 
 
+def cmd_scaling_bench(args):
+    """The scaling harness over mesh prefixes of the world this command was
+    launched in (parallel/scaling_bench.measure_weak_scaling); sizes beyond
+    the world are skipped, and rank 0 prints the JSON.  Ranks sharing one
+    card give the harness's overheads, not multi-card scaling."""
+    from openmvg_torch.parallel import runtime
+    from openmvg_torch.parallel.scaling_bench import measure_weak_scaling
+
+    sizes = tuple(int(s) for s in args.mesh_sizes.split(","))
+    with runtime.joined(args.device) as (rank, _):
+        res = measure_weak_scaling(mesh_sizes=sizes, pairs_per_device=args.pairs_per_device,
+                                   n_feats=args.n_feats, trials=args.trials)
+    if rank == 0:
+        print(json.dumps(res, indent=1))
+    return 0
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="openmvg_torch",
                                  description=__doc__.splitlines()[0])
@@ -1187,7 +1287,9 @@ def build_parser():
     p.add_argument("-P", "--preemptive_count", type=int, default=0)
     p.add_argument("--ring_matching", choices=("auto", "on", "off"),
                    default="auto",
-                   help="multi-device only; on one device auto = off")
+                   help="stream descriptor shards around the ranks instead of "
+                        "holding the stack whole (several ranks only; auto = when "
+                        "the stack exceeds 1 GiB)")
 
     p = stage("filter", cmd_filter)
     p.add_argument("-i", "--input_file", required=True)
@@ -1376,6 +1478,13 @@ def build_parser():
     p.add_argument("-i", "--input_file", default="")
     p.add_argument("-p", "--pair_file", required=True)
     p.add_argument("-g", "--gt_matches", default="")
+
+    p = stage("scaling-bench", cmd_scaling_bench)
+    p.add_argument("-n", "--n_views", type=int, default=8)
+    p.add_argument("-s", "--mesh_sizes", default="1,2,4,8")
+    p.add_argument("-p", "--pairs_per_device", type=int, default=256)
+    p.add_argument("-f", "--n_feats", type=int, default=1024)
+    p.add_argument("-t", "--trials", type=int, default=5)
     return ap
 
 

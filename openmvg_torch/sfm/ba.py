@@ -25,6 +25,19 @@ a group table runs each CG iteration's matvec through kernel K3
 (ops/smatvec.py) instead, as the reference's switch of the same name does;
 unset, the matvec is the unfused sequence of J-products and K2 sums.
 
+Sharded solves (parallel/dist_ba.py) pass a process group: each rank
+holds its rows of the observation table, forms its J-products and sums
+on them, and the sums are all-reduced (the reference's psum over `axis`).
+Observation-sharded, the parameters are whole on every rank and so are
+the point sums, reduced like the camera sums; point-sharded
+(shard_points), each rank owns a block of points and all their
+observations, and only the camera sums, the cost and the point term of
+the predicted gain are reduced.  The pose-prior terms are added once,
+after the reduction.  Every branch (the CG stopping test, LM's accept, the
+damping cap) reads values that every rank holds bit for bit alike, so the
+ranks take the same branches.  K3 stays off when sharded, as the
+reference gates it.
+
 The LM loop and the CG loop are host loops; each reads its stopping test
 from the device once per iteration.  The dtype is a parameter: the engine
 runs float32 on the card, the tests float64.  Small dense inverses use
@@ -43,6 +56,7 @@ from openmvg_torch.ops import linalg
 from openmvg_torch.ops import seg_sum as k2
 from openmvg_torch.ops import smatvec as k3
 from openmvg_torch.utils import hostmath
+from openmvg_torch.utils.collectives import all_reduce
 
 # refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
 ADJUST_ALL = "ALL"
@@ -86,6 +100,8 @@ class BAProblem(NamedTuple):
     pt_obs: PtObsTable = None
     # K2 plans for obs_pose and obs_intr (with_plans); None on the CPU
     seg_plans: tuple = None
+    # K2 plan for obs_point when pt_obs is None (with_plans)
+    point_plan: object = None
 
 
 class BAConfig(NamedTuple):
@@ -212,8 +228,19 @@ def _huber_sqrt_weight(r, a, use_huber):
     return torch.sqrt(w)
 
 
-def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False):
-    """0.5 * sum rho(|r|^2) over weighted observations, plus the priors."""
+def _reduce(group, *ts):
+    """The sums of `ts` over the ranks of `group` (one all-reduce for all
+    of them); the tensors themselves when group is None."""
+    if group is None:
+        return ts if len(ts) > 1 else ts[0]
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in ts]), group)
+    out = tuple(a.reshape(t.shape) for a, t in zip(flat.split([t.numel() for t in ts]), ts))
+    return out if len(out) > 1 else out[0]
+
+
+def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False, group=None):
+    """0.5 * sum rho(|r|^2) over weighted observations, plus the priors
+    (added once, after the sum over the ranks of `group`)."""
     r = residuals(p, cam_fast)
     s = (r * r).sum(-1)
     if cfg.use_huber:
@@ -221,7 +248,7 @@ def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False):
         rho = torch.where(s <= a, s, 2.0 * torch.sqrt(a * torch.clamp(s, min=0.0)) - a)
     else:
         rho = s
-    c = 0.5 * (rho * p.obs_w).sum()
+    c = _reduce(group, 0.5 * (rho * p.obs_w).sum())
     rp = _prior_residual_one(torch.cat([p.rotvec, p.t], -1), p.prior_C, p.prior_w)
     return c + 0.5 * (rp * rp).sum()
 
@@ -249,13 +276,16 @@ def _seg_sum(vals, ids, num, plan=None):
 
 
 def with_plans(p: BAProblem):
-    """The problem with K2 plans for its pose and intrinsic ids (built once
-    per problem on the card; the plain CPU path needs none)."""
+    """The problem with K2 plans for its pose and intrinsic ids, and for its
+    point ids when it has no point tables (built once per problem on the
+    card; the plain CPU path needs none)."""
     if p.obs_pose.device.type != "cuda" or p.seg_plans is not None:
         return p
-    return p._replace(seg_plans=(
-        k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
-        k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0])))
+    return p._replace(
+        seg_plans=(k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
+                   k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0])),
+        point_plan=(k2.seg_sum_plan(p.obs_point, p.X.shape[0]) if p.pt_obs is None
+                    else None))
 
 
 def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
@@ -330,7 +360,7 @@ def _pt_seg_sum(vals, p: BAProblem, num):
     was over its budget."""
     t = p.pt_obs
     if t is None:
-        return _seg_sum(vals, p.obs_point, num)
+        return _seg_sum(vals, p.obs_point, num, p.point_plan)
     if t.rows is None:
         L1 = t.row_point.shape[0]
         R = vals.shape[0] // L1
@@ -415,9 +445,13 @@ def _fused_smatvec_plan(p: BAProblem, Jp6):
                            p.rotvec.shape[0], p.intr_params.shape[0], p.seg_plans)
 
 
-def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
+def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig, group=None,
+                   shard_points=False):
     """One damped normal-equation solve.  Returns (d_pose (P, 6), d_intr
-    (I, 8), d_X (L, 3), predicted gain)."""
+    (I, 8), d_X (L, 3), predicted gain).  With `group`, the camera sums are
+    all-reduced over its ranks, and the point sums too unless
+    shard_points (then the points are this rank's own)."""
+    pgroup = None if shard_points else group
     n_pose = p.rotvec.shape[0]
     n_intr = p.intr_params.shape[0]
     n_pts = p.X.shape[0]
@@ -426,19 +460,19 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
 
     # point blocks Hpp = sum Jx^T Jx + lam diag; fixed/padded points get
     # an identity block (zero rhs -> zero update)
-    Hpp = _block_outer_pt(Jx3, p, n_pts)
+    Hpp = _reduce(pgroup, _block_outer_pt(Jx3, p, n_pts))
     dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
     Hpp = Hpp + lam * torch.clamp(dpp, min=1e-12)[..., None] * eye3
     Hpp = Hpp + ((1.0 - p.mask_X) + 1e-12)[:, None, None] * eye3
 
-    gp, gi = _camera_rmatvec(-r, p, Jp6, Ji8, n_pose, n_intr)
-    gx = _pt_seg_sum(_brmatvec(Jx3, -r), p, n_pts)
+    gp, gi = _reduce(group, *_camera_rmatvec(-r, p, Jp6, Ji8, n_pose, n_intr))
+    gx = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, -r), p, n_pts))
 
     Jprior, rprior = _prior_blocks(p)
     Hprior = torch.einsum("pij,pik->pjk", Jprior, Jprior)
     gprior = -torch.einsum("pij,pi->pj", Jprior, rprior)
 
-    Hcc_p, Hcc_i = _camera_jtj(p, Jp6, Ji8, n_pose, n_intr)
+    Hcc_p, Hcc_i = _reduce(group, *_camera_jtj(p, Jp6, Ji8, n_pose, n_intr))
     Hcc_p = Hcc_p + Hprior
     dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
     dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
@@ -451,7 +485,7 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
 
     # reduced rhs b = gc - E Hpp^-1 gx, E v = Jc^T (Jx v)
     z = _bmatvec(Jx3, _pt_expand(Hpp_solve(gx), p))
-    bp, bi = _camera_rmatvec(z, p, Jp6, Ji8, n_pose, n_intr)
+    bp, bi = _reduce(group, *_camera_rmatvec(z, p, Jp6, Ji8, n_pose, n_intr))
     bp = gp + gprior - bp
     bi = gi - bi
 
@@ -467,7 +501,7 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
     Mp_inv = linalg.inv(Mp)
     Mi_inv = linalg.inv(Mi)
 
-    fused = _fused_smatvec_plan(p, Jp6)
+    fused = _fused_smatvec_plan(p, Jp6) if group is None else None
 
     def S_matvec(vp, vi):
         """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
@@ -476,9 +510,9 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
                                 p.pt_obs.row_point, p.pt_obs.groups, fused)
         else:
             u = _camera_matvec(vp, vi, p, Jp6, Ji8)
-            y = Hpp_solve(_pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
-            sp, si = _camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p, Jp6, Ji8,
-                                     n_pose, n_intr)
+            y = Hpp_solve(_reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts)))
+            sp, si = _reduce(group, *_camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p,
+                                                     Jp6, Ji8, n_pose, n_intr))
         sp = sp + torch.einsum("pij,pj->pi", Hprior, vp) + lam * dcc_p * vp
         si = si + lam * dcc_i * vi
         return sp, si
@@ -516,13 +550,16 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig):
 
     # back-substitute points: d_X = Hpp^-1 (gx - E^T dc)
     u = _camera_matvec(d_pose, d_intr, p, Jp6, Ji8)
-    w = _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts)
+    w = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
     d_X = Hpp_solve(gx - w) * p.mask_X[:, None]
 
-    # predicted gain 0.5 d^T (lam D d + g)
+    # predicted gain 0.5 d^T (lam D d + g); shard-local points' term summed
+    gain_x = (d_X * (lam * torch.clamp(dpp, min=1e-12) * d_X + gx)).sum()
+    if shard_points:
+        gain_x = _reduce(group, gain_x)
     gain = 0.5 * ((d_pose * (lam * dcc_p * d_pose + gp)).sum()
                   + (d_intr * (lam * dcc_i * d_intr + gi)).sum()
-                  + (d_X * (lam * torch.clamp(dpp, min=1e-12) * d_X + gx)).sum())
+                  + gain_x)
     return d_pose, d_intr, d_X, gain
 
 
@@ -537,18 +574,22 @@ def cam_fast_ok(p: BAProblem):
     return kinds.numel() > 0 and bool((kinds == cm.PINHOLE).all())
 
 
-def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None):
+def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
+            shard_points=False):
     """One LM iteration: solve, tentative step, accept/reject, adapt lam.
-    Returns (problem, lam, cost, accepted) with tensor lam/cost/accepted."""
+    Returns (problem, lam, cost, accepted) with tensor lam/cost/accepted.
+    `group` and `shard_points`: the sharded modes of schur_cg_solve; the
+    costs are summed over the ranks, so every rank accepts alike."""
     if cam_fast is None:
         cam_fast = cam_fast_ok(p)
     p = with_plans(p)
     lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
-    cost0 = robust_cost(p, cfg, cam_fast)
+    cost0 = robust_cost(p, cfg, cam_fast, group)
     r, Jp6, Ji8, Jx3 = jacobians(p, cfg, cam_fast)
-    d_pose, d_intr, d_X, _ = schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg)
+    d_pose, d_intr, d_X, _ = schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg, group,
+                                            shard_points)
     p_new = _apply_step(p, d_pose, d_intr, d_X)
-    cost1 = robust_cost(p_new, cfg, cam_fast)
+    cost1 = robust_cost(p_new, cfg, cam_fast, group)
     accept = cost1 < cost0
     sel = {f: torch.where(accept, getattr(p_new, f), getattr(p, f))
            for f in ("rotvec", "t", "intr_params", "X")}
@@ -556,17 +597,20 @@ def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None):
     return p._replace(**sel), lam_new, torch.where(accept, cost1, cost0), accept
 
 
-def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False):
+def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False, group=None,
+           shard_points=False):
     """Full LM loop: at most max_iterations steps, stopped once an accepted
     step improves the cost by at most function_tolerance (relative) or lam
-    exceeds 1e10.  Returns (problem, final cost, accepted step count)."""
+    exceeds 1e10.  Returns (problem, final cost, accepted step count).
+    `group` and `shard_points`: this rank's shard of a sharded solve (see
+    lm_step)."""
     cam_fast = cam_fast_ok(p)
     p = with_plans(p)
     lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
-    cost = float(robust_cost(p, cfg, cam_fast))
+    cost = float(robust_cost(p, cfg, cam_fast, group))
     n_acc = 0
     for it in range(cfg.max_iterations):
-        p, lam, new_cost, accept = lm_step(p, lam, cfg, cam_fast)
+        p, lam, new_cost, accept = lm_step(p, lam, cfg, cam_fast, group, shard_points)
         new_cost, accept, lam_f = float(new_cost), bool(accept), float(lam)
         n_acc += int(accept)
         if verbose:

@@ -1,8 +1,9 @@
 """Synthetic multi-view datasets (counterpart: openmvg_tpu/utils/synthetic.py:
-ring_scene, render_textured_sphere_dataset and the camera helper they
-need), and SPHERICAL scenes on the same camera ring: the reference test's
-6-view scene (tests/test_spherical_sfm.py) and a 360-degree room of a size
-users record, written as the CLI's files."""
+ring_scene, bearings_of, render_blob_dataset, render_textured_sphere_dataset,
+big_ba_problem and the camera helper they need), and SPHERICAL scenes on
+the same camera ring: the reference test's 6-view scene
+(tests/test_spherical_sfm.py) and a 360-degree room of a size users record,
+written as the CLI's files."""
 
 import os
 from typing import NamedTuple
@@ -72,6 +73,109 @@ def ring_scene(n_views=12, n_points=100, focal=1000.0, width=1000, height=1000,
     visible = ((Xc[..., 2] > 0) & (x[..., 0] >= 0) & (x[..., 0] < width)
                & (x[..., 1] >= 0) & (x[..., 1] < height))
     return NViewScene(K=K, R=R, t=t, C=C, X=X, x=x, visible=visible)
+
+
+def bearings_of(scene, view, idx=None):
+    """Unit bearings of a pinhole view's pixel observations (numpy)."""
+    x = scene.x[view] if idx is None else scene.x[view][idx]
+    K = scene.K[view]
+    p = (x - K[:2, 2]) / np.array([K[0, 0], K[1, 1]])
+    b = np.concatenate([p, np.ones_like(p[:, :1])], axis=1)
+    return b / np.linalg.norm(b, axis=1, keepdims=True)
+
+
+def render_blob_dataset(out_dir, n_views=6, n_points=400, size=320, focal=400.0, seed=0,
+                        arc_step=0.12, flatten=0.4):
+    """Render random Gaussian intensity blobs seen from a camera arc
+    (arc_step radians between views), with Strecha-format ground truth.
+    flatten < 1 squeezes the cloud toward the z = 0 plane; "ball" makes a
+    shell seen alike from every ring angle.  Writes
+    out_dir/images/img_XX.png and out_dir/gt/img_XX.png.camera; returns
+    (imgdir, gtdir, Rs, Cs, K).  Host numpy, the reference's draws."""
+    rng = np.random.default_rng(seed)
+    if flatten == "ball":
+        d = rng.normal(size=(n_points, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        X = d * rng.uniform(0.35, 0.9, (n_points, 1))
+    else:
+        X = rng.uniform(-0.9, 0.9, size=(n_points, 3))
+        X[:, 2] *= flatten
+    intens = rng.uniform(0.3, 1.0, n_points)
+    radii = rng.uniform(1.2, 2.8, n_points)
+    K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1.0]])
+    imgdir = os.path.join(out_dir, "images")
+    gtdir = os.path.join(out_dir, "gt")
+    os.makedirs(imgdir, exist_ok=True)
+    os.makedirs(gtdir, exist_ok=True)
+    Rs, Cs = [], []
+    W = 17  # blob window half-extent (covers 4 r at r <= 4)
+    PAD = W + 6
+    win = np.arange(-W, W + 1, dtype=np.float32)
+    for v in range(n_views):
+        theta = (v - n_views / 2) * arc_step
+        C = np.array([3.0 * np.sin(theta), 0.3 * np.sin(2 * theta), -3.0 * np.cos(theta)])
+        R = _look_at(C, [0.0, 0.0, 0.0])
+        Rs.append(R)
+        Cs.append(C)
+        Xc = (X - C) @ R.T
+        z = Xc[:, 2]
+        uv = (Xc[:, :2] / np.where(np.abs(z) < 1e-9, 1e-9, z)[:, None]) * focal + size / 2
+        img = np.zeros((size + 2 * PAD, size + 2 * PAD), np.float32)
+        ok = (z > 0.5) & (uv[:, 0] > -5) & (uv[:, 0] < size + 5) \
+            & (uv[:, 1] > -5) & (uv[:, 1] < size + 5)
+        r_all = np.clip(radii * focal / (np.maximum(z, 0.5) * 130.0) * 40.0, 1.0, 4.0)
+        for p in np.nonzero(ok)[0]:
+            u, v2 = uv[p]
+            iu, iv = int(round(u)), int(round(v2))
+            gy = np.exp(-((win + iv - v2) ** 2) / (2 * r_all[p] ** 2))
+            gx = np.exp(-((win + iu - u) ** 2) / (2 * r_all[p] ** 2))
+            img[iv + PAD - W: iv + PAD + W + 1,
+                iu + PAD - W: iu + PAD + W + 1] += intens[p] * np.outer(gy, gx)
+        img = np.clip(img[PAD: PAD + size, PAD: PAD + size], 0, 1)
+        name = f"img_{v:02d}.png"
+        write_image(os.path.join(imgdir, name), img)
+        write_strecha_camera(os.path.join(gtdir, name + ".camera"), K, R, C, (size, size))
+    return imgdir, gtdir, np.stack(Rs), np.stack(Cs), K
+
+
+def big_ba_problem(n_poses=256, n_points=300_000, obs_per_point=14, seed=0, noise_px=0.5,
+                   noise_X=0.01, dtype=torch.float32, device="cpu"):
+    """A large, geometrically consistent BA problem built observation table
+    first: cameras on a ring of radius 3 looking at the origin, each point
+    seen from obs_per_point poses within 32 ring steps, one shared PINHOLE
+    (f 1000, principal point (500, 500)), 0.5 px pixel noise and points
+    perturbed by noise_X.  The numpy draws are the reference's, so one seed
+    gives the reference's problem; the observations take the port's
+    point-major layout (without the reference's rows of padding).  Returns
+    (sfm.ba.BAProblem on `device`, number of observations)."""
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.utils.hostmath import logmap_np
+
+    rng = np.random.default_rng(seed)
+    theta = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
+    C = np.stack([3 * np.cos(theta), 3 * np.sin(theta), 0.2 * np.sin(3 * theta)], 1)
+    R = np.stack([_look_at(c, [0.0, 0.0, 0.0]) for c in C])
+    X = rng.uniform(-1, 1, (n_points, 3)) * [1.0, 1.0, 0.4]
+    base = rng.integers(0, n_poses, n_points)
+    offs = rng.integers(0, 32, (n_points, obs_per_point))
+    pose_id = ((base[:, None] + offs) % n_poses).reshape(-1)
+    point_id = np.repeat(np.arange(n_points), obs_per_point)
+    f, cx, cy = 1000.0, 500.0, 500.0
+    Xc = np.einsum("oij,oj->oi", R[pose_id], X[point_id] - C[pose_id])
+    x = Xc[:, :2] / Xc[:, 2:] * f + [cx, cy]
+    x = x + rng.normal(scale=noise_px, size=x.shape)
+    O = len(pose_id)
+    X0 = X + rng.normal(scale=noise_X, size=X.shape)
+    obs_pose, obs_intr, obs_point, obs_x, obs_w, table = ba.point_major_layout(
+        pose_id, np.zeros(O, np.int64), point_id, x, np.ones(O), n_points)
+    fields = dict(obs_pose=obs_pose, obs_intr=obs_intr, obs_point=obs_point, obs_x=obs_x,
+                  obs_w=obs_w, rotvec=logmap_np(R), t=-np.einsum("nij,nj->ni", R, C),
+                  intr_kind=np.asarray([cm.PINHOLE]), intr_wh=np.asarray([[1000, 1000]]),
+                  intr_params=np.asarray([[f, cx, cy, 0, 0, 0, 0, 0]]), X=X0,
+                  mask_pose=np.ones((n_poses, 6)), mask_intr=np.zeros((1, 8)),
+                  mask_X=np.ones(n_points), prior_C=np.zeros((n_poses, 3)),
+                  prior_w=np.zeros((n_poses, 3)), pt_obs=table)
+    return ba.problem_from_reference(fields, dtype, device), O
 
 
 def _spherical_scene(n_views, width, height):
