@@ -10,8 +10,11 @@ last line is printed):
   build     builds every kernel of the path from the sources in this
             checkout (K1: openmvg_torch/csrc/two_nn.cu, K2:
             openmvg_torch/csrc/seg_sum.cu, K3: openmvg_torch/csrc/smatvec.cu)
-            and the host library of the f64 polish
-            (openmvg_torch/csrc/native.cpp), one compiler each, in parallel
+            and the host libraries: the f64 polish
+            (openmvg_torch/csrc/native.cpp), the JPEG codec
+            (openmvg_torch/csrc/jpeg.cpp) and the CPU baselines
+            (openmvg_torch/csrc/bench_native.cpp, -march=native), one
+            compiler each, in parallel
   kernel    holds K1 against its plain PyTorch version on the card: exact
             equality for uint8 (16 pairs of 4096x4096x128, ragged counts
             with valid_b masking, planted ties and duplicate rows, ties that
@@ -36,7 +39,13 @@ last line is printed):
             1e-5 (1 + S) of the plain version in float64, S the output's
             sum of magnitudes (smatvec_magnitudes), the e buffer of its
             first launch likewise against smatvec_e_plain, two launches a
-            call, and two calls bitwise equal
+            call, and two calls bitwise equal.  Then the reference's CPU
+            2-NN baseline (openmvg_torch.native.bench_match_2nn) on K1's
+            headline 16 pairs with 1,024 A rows a pair planted near a B
+            row (native_match_check): its index equal to K1's on every row
+            whose nearest neighbour is unique, its keep flags equal to d1 <
+            0.8^2 d2 on K1's squared distances, with rows kept and rows
+            between 0.64 and 0.8, timed beside K1
   pipeline  renders the textured-sphere dataset (100 views of 1024^2, the
             repo's realistic scale) on the card and runs the port's CLI
             init -> features (HIGH) -> pairs (CONTIGUOUS 6) -> matches ->
@@ -55,21 +64,45 @@ last line is printed):
             (0.2% of the 3.0 ring radius), reprojection rmse < 1 px, K2
             launched, >= 1 accepted polish step and one colour per landmark
             and camera in colorized.ply; the fused S-matvec (K3) is off, as
-            by default, and must not launch
-  sfm2      sfm -s INCREMENTALV2 --output_format bin on the same matches,
+            by default, and must not launch.  Then the reference's CPU LM
+            baseline (openmvg_torch.native.bench_ba_lm_step) at the final
+            scene's problem, its costs within 1e-10 relative of the f64
+            polish's step with the same fixed intrinsics, both timed
+  jpeg      the main path on photographs: the pipeline's 100 renders
+            re-encoded as .jpg through the port's write_image (encode and
+            decode ms an image, and the mean |JPEG - PNG|, printed), then
+            init without -f (the focal must be the no-EXIF 1.2 x size),
+            features HIGH, pairs, matches, filter f, sfm -s INCREMENTAL
+            (written as sfm_data.bin), color and eval, every kernel's
+            count set to 0 just before and read just after: the pipeline's
+            and the sfm phase's gates, K1 and K2 launched, K3 not, the PNG
+            run's features seconds printed beside; K1 and K2 at this run's
+            own shapes against their plain versions (K1 on its matches
+            batch, exact; K2's camera and generic sums at its final bundle
+            adjustment within 1e-5 (1 + S)), each timed beside its bound
+            and its library call; and the golden digests: the port's decode of
+            tests/torch_data's progressive and restart-marker fixtures, and
+            of its encoding of the first one's 257 x 131 pixels in RGB and
+            gray, equal to the sha256 of jpeg_digests.json (which a CPU
+            test holds against PIL's decode)
+  sfm2      sfm -s INCREMENTALV2 --output_format bin on the filter f
+            matches of the first 50 views (a cut, printed, shared with
+            stellar: init on them and their pairs' matches),
             then color and eval --html reading sfm_data.bin: the sfm gates
             (K3 off), the reconstruction directory holding sfm_data.bin,
             cloud_and_poses.ply and SfMReconstruction_Report.html, the eval
             HTML written, and convert of the .bin to .json reading back the
             same poses and landmarks exactly
   global    with OMT_FUSED_SMATVEC=1 (this phase only): filter -g e on the
-            pipeline's putative matches, sfm -s GLOBAL, color and eval on
+            pipeline's putative matches, sfm -s GLOBAL (written as
+            sfm_data.bin), color and eval on
             cuda, every kernel's count set to 0 just before and read just
             after; prints the share of pairs the essential filter kept and
             the engine's stage seconds, and holds the sfm phase's gates with
             K2 and K3 both launched
   stellar   with OMT_FUSED_SMATVEC=1 (this phase only): sfm -s STELLAR on the
-            filter f matches, color and eval; the sfm gates but the polish
+            filter f matches of the first 50 views (a cut, printed: init on
+            them and their pairs' matches), color and eval; the sfm gates but the polish
             (STELLAR runs none, and must print 0 steps), K2 and K3 launched;
             prints the pod count and the engine's stage seconds
   matchers  the rest of the matching and filtering layer on the pipeline's
@@ -224,15 +257,21 @@ last line is printed):
             torch.profiler) and the bound (for K1 its epilogue floor, for
             K3 its design floor beside it), for the kernels line
 
-Cut to keep the whole run near half of its 1,200 s limit: the features
-stage's profiled re-run (the matches and filter stages keep theirs), the
-profiled re-runs of the sfm stages (about 80 s each), and camera3's scale:
-24 views, not 100 (its exhaustive pairs grow with the square of the
-views).
+Cut to keep the whole run within 1,050 s of its 1,200 s limit: the
+features stage's profiled re-run (the matches and filter stages keep
+theirs), the profiled re-runs of the sfm stages (about 80 s each),
+camera3's scale: 24 views, not 100 (its exhaustive pairs grow with the
+square of the views), and INCREMENTALV2's and STELLAR's: the first 50
+views, which pay for the jpeg phase.  The jpeg and GLOBAL runs write their scenes as sfm_data.bin, and
+the tools and multigpu phases read and write the INCREMENTAL scene as
+.bin, not .json (the same scenes; a 100-view .json takes seconds to
+write and read).
 
 The last three lines of standard output are the kernels JSON (each
-kernel's launches on the main path, and on the sfm2, stellar and camera3
-paths as launches_v2, launches_stellar and launches_camera3, each step's of the
+kernel's launches on the main path, and on the jpeg, sfm2, stellar and
+camera3 paths as launches_jpeg, launches_v2, launches_stellar and
+launches_camera3, K1's and K2's CPU baselines as cpu_baseline_ms, each
+step's of the
 tools phase as launches_tools, K1's in the
 matchers phase as launches_matchers and K2's in vlad as launches_vlad,
 with K1's check and times at known-poses' shape and at AKAZE_FLOAT's
@@ -241,7 +280,8 @@ shapes as tools_shapes (K1 at bench-ann's, K2 at localize's camera sums
 and at cluster's Lloyd sums), K2's and K3's
 launches in the spherical phase, and every kernel's in each multigpu run
 by rank as launches_multigpu, with K1's and K2's checks and times at the
-multigpu phase's shapes as multigpu_shapes;
+multigpu phase's shapes as multigpu_shapes and at the jpeg run's as
+jpeg_shapes;
 every phase's stage and engine seconds, and each matchers, describers,
 spherical, cubify, vo and tools step's seconds and readings), then
 nvidia-smi's name and power limit, then
@@ -263,6 +303,7 @@ H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores
 H100_F64_FLOPS = 34e12    # float64 outside the tensor cores
 H100_BYTES = 3.35e12      # HBM3 bandwidth
+CUT_VIEWS = 50            # INCREMENTALV2's and STELLAR's cut, which pays for the jpeg phase
 
 
 def fail(msg):
@@ -351,25 +392,30 @@ def phase_device():
 
 
 def phase_build(kernels):
-    """Every kernel's nvcc and the host library's g++ run at once, one
+    """Every kernel's nvcc and the host libraries' g++ run at once, one
     process per source."""
     from concurrent.futures import ThreadPoolExecutor
 
     from openmvg_torch.sfm import polish
+    from openmvg_torch.utils import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels) + 1) as ex:
-        futs = [ex.submit(k["module"].build) for k in kernels] + [ex.submit(polish.build)]
+    hosts = [polish.build, build.codec_library, build.bench_library]
+    with ThreadPoolExecutor(len(kernels) + len(hosts)) as ex:
+        futs = [ex.submit(k["module"].build) for k in kernels] + [ex.submit(h) for h in hosts]
         for f in futs:
             f.result()
     dt = time.perf_counter() - t0
-    log("[build] host library openmvg_torch/csrc/native.cpp built and loaded")
+    log("[build] host libraries openmvg_torch/csrc/native.cpp (f64 polish), csrc/jpeg.cpp "
+        "(JPEG codec) and csrc/bench_native.cpp (CPU baselines, -march=native) built and "
+        "loaded")
     for k in kernels:
         log(f"[build] {k['name']}: {k['source']} built and loaded")
         for line in k["module"].BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
-    log(f"[build] {len(kernels)} kernel source(s) and the host library in {dt:.2f} s")
+    log(f"[build] {len(kernels)} kernel source(s) and {len(hosts)} host libraries in "
+        f"{dt:.2f} s")
 
 
 def two_nn_bound_ms(descs, counts, pairs, out_elems, int8=True):
@@ -432,6 +478,7 @@ def phase_kernel(two_nn, dev):
     ref = two_nn.two_nn_batch_plain(descs, counts, pairs)
     torch.cuda.synchronize()
     errs.append(compare("(a) 16x4096^2 u8", got, ref))
+    headline = (descs, pairs, tuple(x.clone() for x in got))  # for the CPU baseline
     ms = cuda_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 10)
     plain_ms = cuda_ms(lambda: two_nn.two_nn_batch_plain(descs, counts, pairs), 2, 1)
     a_all = descs[pairs[:, 0].long()]
@@ -518,7 +565,7 @@ def phase_kernel(two_nn, dev):
         f"1e-4 (1 + |d|); kernel {ms_d:.3f} ms, bound {bound_d:.4f} ms ({by_d})")
     return dict(u8_err=max(errs), f32_err=f32_err, headline_ms=ms,
                 headline_plain_ms=plain_ms, headline_lib_ms=lib_ms,
-                headline_bound_ms=bound)
+                headline_bound_ms=bound, headline=headline)
 
 
 def epipolar_check(md, pairs_kept, Rs, Cs, K, size):
@@ -608,7 +655,7 @@ def phase_pipeline(kernel_mods, n_views, size, work):
     import torch
 
     from openmvg_torch import cli
-    from openmvg_torch.io.features_io import load_descs, load_feats
+    from openmvg_torch.io.features_io import load_feats
     from openmvg_torch.io.matches_io import load_matches
     from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
 
@@ -683,23 +730,34 @@ def phase_pipeline(kernel_mods, n_views, size, work):
     log(f"[pipeline] the re-run wrote the same {len(written)} matches .bin files byte for "
         "byte")
 
-    # the matches stage's own K1 inputs, for the measure phase
+    return dict(secs=secs, launches=launches, **k1_batch_inputs(md, n_views),
+                work=work, sfm=sfm, md=md, gtdir=gtdir, gt=(Rs, Cs, K, size),
+                imgdir=imgdir, focal=focal)
+
+
+def k1_batch_inputs(md, n_views):
+    """The matches stage's own K1 inputs: the views' descriptors stacked
+    (n_views, Nmax, 128) uint8, their counts and the pairs file's pairs."""
+    import numpy as np
+
+    from openmvg_torch import cli
+    from openmvg_torch.io.features_io import load_descs
+
     descs = [load_descs(os.path.join(md, f"img_{v:02d}.desc")) for v in range(n_views)]
-    nmax = max(len(d) for d in descs)
-    stack = np.zeros((n_views, nmax, 128), np.uint8)
+    stack = np.zeros((n_views, max(len(d) for d in descs), 128), np.uint8)
     for v, d in enumerate(descs):
         stack[v, :len(d)] = d
     pairs = np.asarray(cli.load_pairs_file(os.path.join(md, "pairs.txt")), np.int32)
-    return dict(secs=secs, launches=launches, stack=stack,
-                counts=np.asarray([len(d) for d in descs], np.int32), pairs=pairs,
-                work=work, sfm=sfm, md=md, gtdir=gtdir, gt=(Rs, Cs, K, size))
+    return dict(stack=stack, counts=np.asarray([len(d) for d in descs], np.int32), pairs=pairs)
 
 
-def phase_measure(two_nn, run, dev, mhz, akaze=None):
-    """K1 at the main path's shapes: the whole matches batch in one launch;
-    CUDA-event and device-only time, the bound and the epilogue floor.
-    `akaze` (AKAZE_FLOAT's stack, counts and pairs) gets its device time
-    from the same profiler session."""
+def phase_measure(two_nn, run, dev, mhz, akaze=None, tag="[measure]", profiled=True):
+    """K1 at the main path's shapes: the whole matches batch in one launch,
+    equal to its plain version; CUDA-event and device-only time, the bound
+    and the epilogue floor.  `akaze` (AKAZE_FLOAT's stack, counts and
+    pairs) gets its device time from the same profiler session; with
+    `profiled` false no session runs and the device time is not
+    measured."""
     import torch
 
     descs = torch.as_tensor(run["stack"], device=dev)
@@ -711,7 +769,7 @@ def phase_measure(two_nn, run, dev, mhz, akaze=None):
     torch.cuda.synchronize()
     for x, y, what in zip(got, ref, ("d1", "d2", "idx1")):
         if not torch.equal(x, y):
-            fail(f"two_nn on the pipeline batch: {what} differs")
+            fail(f"{tag} two_nn on the matches batch: {what} differs")
     ms = cuda_ms(lambda: two_nn.two_nn_batch(descs, counts, pairs), 5, 1)
 
     def both():
@@ -719,11 +777,13 @@ def phase_measure(two_nn, run, dev, mhz, akaze=None):
         if akaze is not None:
             two_nn.two_nn_batch(*akaze)
 
-    per_kernel = device_ms_by_kernel(both, 5, ("two_nn_u8_kernel", "two_nn_f32_kernel"))
+    names = ("two_nn_u8_kernel", "two_nn_f32_kernel")
+    per_kernel = (device_ms_by_kernel(both, 5, names) if profiled
+                  else dict.fromkeys(names, (None, 0)))
     dev_ms, n_k = per_kernel["two_nn_u8_kernel"]
     f32_ms, f32_n = per_kernel["two_nn_f32_kernel"]
     if akaze is not None:
-        log(f"[measure] two_nn at AKAZE_FLOAT's shape (float32, D 64): device {fmt_ms(f32_ms)}, "
+        log(f"{tag} two_nn at AKAZE_FLOAT's shape (float32, D 64): device {fmt_ms(f32_ms)}, "
             f"{f32_n} launches in 5 calls")
     floor = two_nn_epilogue_floor_ms(counts, pairs, mhz)
     plain_ms = cuda_ms(lambda: two_nn.two_nn_batch_plain(descs, counts, pairs), 1, 1)
@@ -735,7 +795,7 @@ def phase_measure(two_nn, run, dev, mhz, akaze=None):
 
     lib_ms = cuda_ms(library, 1, 1)
     bound, by = two_nn_bound_ms(descs, counts, pairs, P * nmax)
-    log(f"[measure] two_nn on the matches batch ({P} pairs, Nmax {nmax}, "
+    log(f"{tag} two_nn on the matches batch ({P} pairs, Nmax {nmax}, "
         f"counts {int(counts.min())}..{int(counts.max())}): exact; kernel "
         f"{ms:.3f} ms (device {fmt_ms(dev_ms)}, {n_k} launches in 5 calls), plain "
         f"{plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}); "
@@ -1113,6 +1173,7 @@ def phase_global(kernel_mods, run, n_views):
     os.environ["OMT_FUSED_SMATVEC"] = "1"
     try:
         res = phase_sfm(kernel_mods, run, n_views, engine="GLOBAL", matches="matches.e.bin",
+                        fmt="bin",
                         pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global",
                         tag="[global]")
     finally:
@@ -1126,7 +1187,7 @@ def phase_global(kernel_mods, run, n_views):
     return res
 
 
-def phase_sfm2(kernel_mods, run, n_views):
+def phase_sfm2(kernel_mods, run, n_views, matches="matches.f.bin"):
     """sfm -s INCREMENTALV2 --output_format bin -> color and eval --html
     reading sfm_data.bin, K3 off; the sfm phase's gates, the files the
     reconstruction directory must hold, and `convert` of the .bin to
@@ -1137,8 +1198,8 @@ def phase_sfm2(kernel_mods, run, n_views):
     from openmvg_torch.io.sfm_data import load_sfm_data
 
     html = os.path.join(run["work"], "eval_v2.html")
-    res = phase_sfm(kernel_mods, run, n_views, engine="INCREMENTALV2", recon_name="recon_v2",
-                    tag="[sfm2]", fmt="bin", html=html)
+    res = phase_sfm(kernel_mods, run, n_views, engine="INCREMENTALV2", matches=matches,
+                    recon_name="recon_v2", tag="[sfm2]", fmt="bin", html=html)
     if res["launches"]["smatvec"] != 0:
         fail("[sfm2] K3 launched, where it is off")
     need = {"sfm_data.bin", "cloud_and_poses.ply", "SfMReconstruction_Report.html"}
@@ -1161,14 +1222,15 @@ def phase_sfm2(kernel_mods, run, n_views):
     return res
 
 
-def phase_stellar(kernel_mods, run, n_views):
+def phase_stellar(kernel_mods, run, n_views, matches="matches.f.bin"):
     """sfm -s STELLAR -> color -> eval on the filter f matches, with the
     fused S-matvec switched on for this phase only; the sfm phase's gates
     but the polish (STELLAR has none), K2 and K3 launched."""
     os.environ["OMT_FUSED_SMATVEC"] = "1"
     try:
-        res = phase_sfm(kernel_mods, run, n_views, engine="STELLAR", recon_name="recon_stellar",
-                        tag="[stellar]", need=("seg_sum", "smatvec"), polish_gate=False)
+        res = phase_sfm(kernel_mods, run, n_views, engine="STELLAR", matches=matches,
+                        recon_name="recon_stellar", tag="[stellar]",
+                        need=("seg_sum", "smatvec"), polish_gate=False)
     finally:
         del os.environ["OMT_FUSED_SMATVEC"]
     if res["polish_steps"] != 0:
@@ -1176,6 +1238,251 @@ def phase_stellar(kernel_mods, run, n_views):
     log(f"[stellar] {res['pods']} pods; K2 launches {res['launches']['seg_sum']}, K3 "
         f"launches {res['launches']['smatvec']}")
     return res
+
+
+def cut_run(run, n_views, tag):
+    """The run cut to its first n_views views: init on links to their
+    images (the run's focal, pinhole), and the filter f matches between
+    them as matches.f.cut<n>.bin beside the run's.  Returns (run, matches
+    file name)."""
+    from openmvg_torch import cli
+    from openmvg_torch.io.matches_io import load_matches, save_matches
+
+    work = os.path.join(run["work"], f"cut{n_views}")
+    imgdir = os.path.join(work, "images")
+    os.makedirs(imgdir)
+    for name in sorted(os.listdir(run["imgdir"]))[:n_views]:
+        os.symlink(os.path.join(run["imgdir"], name), os.path.join(imgdir, name))
+    out = os.path.join(work, "out")
+    if cli.main(["init", "-i", imgdir, "-o", out, "-f", str(run["focal"]), "-c", "1"]) != 0:
+        fail(f"[cut] init of the cut for {tag} returned non-zero")
+    kept = {k: v for k, v in load_matches(os.path.join(run["md"], "matches.f.bin")).items()
+            if max(k) < n_views}
+    name = f"matches.f.cut{n_views}.bin"
+    save_matches(kept, os.path.join(run["md"], name))
+    log(f"[{tag}] CUT: the first {n_views} of {len(os.listdir(run['imgdir']))} views, "
+        f"{len(kept)} filter f pairs (the realistic scale is 100 views of 1024^2)")
+    return dict(run, work=work, sfm=os.path.join(out, "sfm_data.json"), imgdir=imgdir), name
+
+
+def jpeg_golden():
+    """The port's decode of the committed fixtures (tests/torch_data: a
+    progressive and a restart-marker file written by PIL) and of its own
+    encoding of the progressive one's 257 x 131 pixels, RGB and gray, held
+    to the sha256 digests of jpeg_digests.json, which a CPU test holds
+    against PIL's decode of the same files."""
+    import hashlib
+
+    import numpy as np
+
+    from openmvg_torch.io import image, jpeg
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data")
+    with open(os.path.join(data, "jpeg_digests.json")) as f:
+        want = json.load(f)
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    got = {n: sha(jpeg.read_jpeg(os.path.join(data, n))) for n in ("progressive.jpg",
+                                                                    "restart.jpg")}
+    rgb = jpeg.read_jpeg(os.path.join(data, "progressive.jpg"))
+    got["encode_rgb"] = sha(jpeg.decode_jpeg(jpeg.encode_jpeg(rgb)))
+    got["encode_gray"] = sha(jpeg.decode_jpeg(jpeg.encode_jpeg(image.rgb_to_gray_u8(rgb))))
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    if bad:
+        fail(f"[jpeg] golden digests differ: {bad}")
+    log(f"[jpeg] golden digests equal ({', '.join(sorted(want))}; {rgb.shape[1]} x "
+        f"{rgb.shape[0]})")
+    return sorted(want)
+
+
+def phase_jpeg(kernel_mods, run, n_views, size, mhz):
+    """The main path on photographs: the pipeline phase's renders
+    re-encoded as .jpg through the port's write_image, then init without
+    -f (no EXIF: the size, and the focal 1.2 x size), features HIGH,
+    pairs CONTIGUOUS 6, matches, filter f, sfm INCREMENTAL, color and eval,
+    every kernel's count set to 0 just before and read just after; the
+    pipeline's and the sfm phase's gates, K1 and K2 launched, K3 not.
+    Then K1 and K2 at this run's own shapes against their plain versions
+    (jpeg_shapes): K1 on its matches batch, exact; K2's camera sums and
+    generic sums at its final bundle adjustment, within 1e-5 (1 + S); each
+    timed beside its bound (CUDA events; no profiler session)."""
+    import numpy as np
+
+    from openmvg_torch.io import image
+    from openmvg_torch.ops import seg_sum, two_nn
+    from openmvg_torch.io.matches_io import load_matches
+    from openmvg_torch.io.sfm_data import load_sfm_data
+
+    work = os.path.join(run["work"], "jpeg")
+    jdir = os.path.join(work, "images")
+    os.makedirs(jdir)
+    enc = dec = 0.0
+    diffs = []
+    names = sorted(os.listdir(run["imgdir"]))
+    for name in names:
+        a = image.read_image(os.path.join(run["imgdir"], name))
+        path = os.path.join(jdir, os.path.splitext(name)[0] + ".jpg")
+        t = time.perf_counter()
+        image.write_image(path, a)
+        enc += time.perf_counter() - t
+        t = time.perf_counter()
+        b = image.read_image(path)
+        dec += time.perf_counter() - t
+        diffs.append(float(np.abs(a.astype(np.int16) - b).mean()))
+    enc_ms, dec_ms = 1e3 * enc / len(names), 1e3 * dec / len(names)
+    mad = float(np.mean(diffs))
+    log(f"[jpeg] {len(names)} views re-encoded as .jpg: encode {enc_ms:.2f} ms, decode "
+        f"{dec_ms:.2f} ms an image (host); mean |JPEG - PNG| {mad:.3f} gray levels")
+    out = os.path.join(work, "out")
+    md = os.path.join(work, "matches")
+    sfm = os.path.join(out, "sfm_data.json")
+    recon = os.path.join(work, "recon")
+    scene_path = os.path.join(recon, "sfm_data.bin")
+    stages = [
+        ("init", ["init", "-i", jdir, "-o", out, "-c", "1"]),
+        ("features", ["features", "-i", sfm, "-o", md, "-p", "HIGH"]),
+        ("pairs", ["pairs", "-i", sfm, "-m", "CONTIGUOUS", "-c", "6",
+                   "-o", os.path.join(md, "pairs.txt")]),
+        ("matches", ["matches", "-i", sfm, "-o", os.path.join(md, "matches.putative.bin"),
+                     "-p", os.path.join(md, "pairs.txt"), "-r", "0.8"]),
+        ("filter", ["filter", "-i", sfm, "-m", os.path.join(md, "matches.putative.bin"),
+                    "-o", os.path.join(md, "matches.f.bin"), "-g", "f"]),
+        ("sfm", ["sfm", "-i", sfm, "-m", md, "-M", os.path.join(md, "matches.f.bin"),
+                 "-o", recon, "-s", "INCREMENTAL", "--output_format", "bin"]),
+        ("color", ["color", "-i", scene_path, "-o", os.path.join(recon, "colorized.ply")]),
+        ("eval", ["eval", "-i", scene_path, "-g", run["gtdir"]]),
+    ]
+    secs, printed, launches = run_stages(kernel_mods, stages)
+    log("[jpeg] stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; the PNG run's features {run['secs']['features']:.2f} s in the same call")
+    focal = float(load_sfm_data(sfm).cameras.params[0][0])
+    if abs(focal - 1.2 * size) > 1e-9:
+        fail(f"[jpeg] init without -f gave the focal {focal}, not 1.2 x {size}")
+    if launches["two_nn"] <= 0 or launches["smatvec"] != 0:
+        fail(f"[jpeg] launches {launches}: K1 must launch and K3 must not")
+    Rs, Cs, K, _ = run["gt"]
+    kept = load_matches(os.path.join(md, "matches.f.bin"))
+    n_pairs = sum(min(6, n_views - 1 - i) for i in range(n_views))
+    n_ok, n_all = epipolar_check(md, kept, Rs, Cs, K, size)
+    share = n_ok / max(n_all, 1)
+    log(f"[jpeg] init focal {focal} (1.2 x {size}, no EXIF); pairs kept {len(kept)}/{n_pairs}; "
+        f"{100 * share:.2f}% of {n_all} filtered matches within 4 px of the ground-truth "
+        "epipolar line")
+    if share < 0.95 or len(kept) < 0.9 * n_pairs:
+        fail(f"[jpeg] {100 * share:.2f}% within 4 px, {len(kept)} of {n_pairs} pairs kept")
+    stats = json.loads(printed["eval"].getvalue())
+    scene, polish_steps, rounds, _ = check_reconstruction(
+        "[jpeg]", scene_path, os.path.join(recon, "colorized.ply"), stats, n_views,
+        ("two_nn", "seg_sum"), launches, printed["sfm"].getvalue())
+    shapes = {"k1_matches_batch": phase_measure(two_nn, k1_batch_inputs(md, n_views), "cuda",
+                                                mhz, tag="[jpeg]", profiled=False),
+              "k2_final_ba": phase_measure_k2(seg_sum, final_problem(scene), tag="[jpeg]",
+                                              profiled=False)}
+    return dict(secs=secs, launches=launches, shapes=shapes, encode_ms=enc_ms, decode_ms=dec_ms,
+                mean_abs_diff=mad, focal=focal, pairs_kept=[len(kept), n_pairs],
+                epipolar_share=share, polish_steps=polish_steps, rounds=rounds,
+                eval={k: v for k, v in stats.items() if not isinstance(v, dict)},
+                png_features_s=run["secs"]["features"], golden=jpeg_golden())
+
+
+def native_match_check(two_nn, headline, k1_ms):
+    """The reference's CPU 2-NN baseline (openmvg_torch.native, AVX2 +
+    OpenMP) on K1's headline 16 pairs of 4096 x 4096 x 128, with the first
+    1,024 A rows of each pair planted between a B row and a random row
+    (A = round((1 - t) B + t R), t uniform in [0, 1], B rows from the
+    unplanted half) so that the ratio test keeps rows and squared ratios
+    fall on both sides of 0.8^2 and of 0.8.  K1 runs on the planted copy
+    (a comparison launch).  On every row whose nearest neighbour is unique
+    the baseline's index equals K1's, and its keep flags equal the
+    reference's rule on K1's squared distances, d1 < 0.8^2 d2
+    (openmvg_tpu/native/native.cpp:350-354), with rows kept and rows whose
+    d1 / d2 lies in [0.64, 0.8), which d1 < 0.8 d2 would keep."""
+    import numpy as np
+    import torch
+
+    from openmvg_torch import native
+
+    descs, pairs, _ = headline
+    D, P = descs.cpu().numpy().copy(), pairs.cpu().numpy()
+    rng = np.random.default_rng(11)
+    N = D.shape[1]
+    n_plant = N // 4
+    for i, j in P:  # B rows come from [N/2, N), which no planting touches
+        src = rng.integers(N // 2, N, n_plant)
+        t = rng.uniform(0.0, 1.0, (n_plant, 1))
+        mix = (1 - t) * D[j, src] + t * rng.integers(0, 256, (n_plant, D.shape[2]))
+        D[i, :n_plant] = np.clip(np.rint(mix), 0, 255)
+    dd = torch.as_tensor(D, device=descs.device)
+    counts = torch.full((D.shape[0],), N, dtype=torch.int32, device=descs.device)
+    d1, d2, idx = (x.cpu().numpy() for x in two_nn.two_nn_batch(dd, counts, pairs))
+    d1, d2 = d1.astype(np.float64), d2.astype(np.float64)
+    t = time.perf_counter()
+    res = [native.bench_match_2nn(D[i], D[j], 0.8) for i, j in P]
+    ms = 1e3 * (time.perf_counter() - t)
+    unique = d1 < d2
+    keep = d1 < (0.8 * 0.8) * d2
+    between = (d1 >= (0.8 * 0.8) * d2) & (d1 < 0.8 * d2)
+    if not keep.any() or not between.any():
+        fail(f"[native] the planted rows give {int(keep.sum())} kept and {int(between.sum())} "
+             "between 0.64 and 0.8: the keep check would not separate the rules")
+    for p, (ci, ck) in enumerate(res):
+        if not np.array_equal(ci[unique[p]], idx[p][unique[p]]):
+            fail(f"[native] bench_match_2nn: pair {p}'s indices differ from K1's")
+        if not np.array_equal(ck.astype(bool), keep[p]):
+            fail(f"[native] bench_match_2nn: pair {p}'s keep flags differ from K1's")
+    log(f"[native] CPU baseline bench_match_2nn (AVX2 + OpenMP, {os.cpu_count()} host cores) on "
+        f"the {len(P)} pairs of {N} x {N} x {D.shape[2]} ({n_plant} planted A rows a pair): "
+        f"{ms:.1f} ms against K1's {k1_ms:.3f} ms; indices equal on {int(unique.sum())} unique "
+        f"rows of {unique.size}, keep flags equal ({int(keep.sum())} kept, "
+        f"{int(between.sum())} with d1/d2 in [0.64, 0.8))")
+    return dict(ms=ms, unique_rows=int(unique.sum()), rows=int(unique.size),
+                kept=int(keep.sum()), between_064_08=int(between.sum()), planted_rows=n_plant)
+
+
+def native_ba_check(scene):
+    """The reference's CPU LM baseline (openmvg_torch.native.
+    bench_ba_lm_step, -march=native) at the final INCREMENTAL scene's
+    problem, built as the f64 polish builds it, against the polish's own
+    step (sfm/polish.py::ba_lm_step_k) with the same fixed intrinsics: the
+    costs before and after within 1e-10 relative."""
+    import numpy as np
+
+    from openmvg_torch import native
+    from openmvg_torch.sfm import polish
+    from openmvg_torch.utils import hostmath
+
+    info = scene.obs_arrays_for_ba()
+    pose_ids, point_ids = np.unique(info["pose_id"]), np.unique(info["landmark_id"])
+    obs_pose = np.searchsorted(pose_ids, info["pose_id"]).astype(np.int32)
+    obs_point = np.searchsorted(point_ids, info["landmark_id"]).astype(np.int32)
+    obs_x = np.ascontiguousarray(info["x"], np.float64)
+    R = scene.pose_R[pose_ids]
+    rotvec = np.ascontiguousarray(hostmath.logmap_np(R), np.float64)
+    t = np.ascontiguousarray(-np.einsum("nij,nj->ni", R, scene.pose_C[pose_ids]), np.float64)
+    X = np.ascontiguousarray(scene.X[point_ids], np.float64)
+    kp = np.asarray(scene.cameras.params, np.float64)[0, 0:3].copy()
+    runs = {}
+    for name in ("baseline", "polish"):
+        arrs = [a.copy() for a in (rotvec, t, X)]
+        t0 = time.perf_counter()
+        if name == "baseline":
+            out = native.bench_ba_lm_step(obs_pose, obs_point, obs_x, *arrs, *kp)
+        else:
+            out = polish.ba_lm_step_k(obs_pose, obs_point, obs_x, *arrs, kp.copy(),
+                                      refine_k=False)
+        runs[name] = (1e3 * (time.perf_counter() - t0), *out)
+    (ms, ok, c0, c1), (pms, pok, p0, p1) = runs["baseline"], runs["polish"]
+    rel = max(abs(c0 - p0) / abs(p0), abs(c1 - p1) / abs(p1))
+    log(f"[native] CPU baseline bench_ba_lm_step at the final INCREMENTAL problem (O "
+        f"{len(obs_pose)}, P {len(pose_ids)}, L {len(point_ids)}): {ms:.1f} ms (the polish's "
+        f"step {pms:.1f} ms); cost {c0:.9g} -> {c1:.9g} (accepted {ok}), polish {p0:.9g} -> "
+        f"{p1:.9g} (accepted {pok}), {rel:.3g} relative")
+    if not rel <= 1e-10 or ok != pok:
+        fail(f"[native] bench_ba_lm_step's cost differs from the polish's by {rel:.3g}")
+    return dict(ms=ms, polish_ms=pms, O=len(obs_pose), P=len(pose_ids), L=len(point_ids),
+                cost=[c0, c1], rel=rel)
 
 
 def _roty(theta):
@@ -2466,13 +2773,16 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
 
     md, work, gtdir = run["md"], run["work"], run["gtdir"]
     Rs, Cs, K, size = run["gt"]
-    scene_path = os.path.join(srun["recon"], "sfm_data.json")
-    scene = load_sfm_data(scene_path)
+    scene = load_sfm_data(os.path.join(srun["recon"], "sfm_data.json"))
     posed = [v for v in range(scene.n_views)
              if scene.view_pose[v] >= 0 and scene.pose_valid[scene.view_pose[v]]]
     tw = os.path.join(work, "tools")
     os.makedirs(tw, exist_ok=True)
-    out, launches_by_step = {}, {}
+    # the tools read and write the scene as .bin: the same scene, and
+    # 100-view JSON files take seconds each to write and read
+    scene_path = os.path.join(tw, "scene.bin")
+    save_sfm_data(scene, scene_path)
+    out, launches_by_step = {"scene_bin": scene_path}, {}
 
     def step(name, stages):
         secs, printed, launches = run_stages(kernel_mods, stages)
@@ -2528,7 +2838,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     del prob
     refined = {}
     for tag, fused in (("refine", False), ("refine_fused", True)):
-        r = os.path.join(tw, f"{tag}.json")
+        r = os.path.join(tw, f"{tag}.bin")
         if fused:
             os.environ["OMT_FUSED_SMATVEC"] = "1"
         try:
@@ -2592,7 +2902,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     outl = rng.choice(n_views, n_views // 10, replace=False)
     prior[outl] += rng.normal(scale=30.0, size=(len(outl), 3))
     geo.prior_center, geo.prior_center_weight = prior, np.ones((n_views, 3))
-    gin, gout = os.path.join(tw, "geo_in.json"), os.path.join(tw, "geo_out.json")
+    gin, gout = os.path.join(tw, "geo_in.bin"), os.path.join(tw, "geo_out.bin")
     save_sfm_data(geo, gin)
     rec, printed = step("geo_register", [("geo-register", ["geo-register", "-i", gin, "-o",
                                                             gout, "--use_priors"])])
@@ -2624,7 +2934,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
         else:
             shutil.copyfile(src, os.path.join(hin, name))
     init.root_path = hin
-    hscene = os.path.join(tw, "harm_scene.json")
+    hscene = os.path.join(tw, "harm_scene.bin")
     save_sfm_data(init, hscene)
     ref_v = next(v for v in range(n_views) if v not in planted)
     rec, printed = step("harmonize", [("harmonize", [
@@ -2657,7 +2967,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     prm[:, 3:6] = [-0.02, 0.0, 0.0]
     dist.cameras = dist.cameras._replace(kind=np.full_like(dist.cameras.kind,
                                                            cm.PINHOLE_RADIAL_K3), params=prm)
-    dpath = os.path.join(tw, "distorted.json")
+    dpath = os.path.join(tw, "distorted.bin")
     save_sfm_data(dist, dpath)
     fmts = ["json", "bin", "ply", "nvm", "colmap", "baf", "bundler", "pmvs", "mve", "openmvs",
             "agisoft", "meshlab", "mvstexturing", "cmpmvs", "frustums", "webgl", "undistorted"]
@@ -2800,7 +3110,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     pdir = os.path.join(tw, "profile")
     t1 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "openmvg_torch.cli", "--profile", pdir, "refine",
-                        "-i", scene_path, "-o", os.path.join(tw, "prof.json"), "-n", "3"],
+                        "-i", scene_path, "-o", os.path.join(tw, "prof.bin"), "-n", "3"],
                        capture_output=True, text=True, timeout=600,
                        cwd=os.path.dirname(os.path.abspath(__file__)))
     rec = out["profile"] = dict(s=time.perf_counter() - t1, rc=r.returncode)
@@ -3046,8 +3356,13 @@ def phase_multigpu(kernel_mods, run, srun, trun, dev="cuda"):
     from openmvg_torch.utils.synthetic import big_ba_problem
 
     t_all = time.perf_counter()
+    # ranks that share the card need the memory this process keeps cached
+    alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    log(f"[multigpu] this process: {alloc / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} "
+        f"GiB reserved, {torch.cuda.memory_reserved() / 2**30:.2f} GiB after empty_cache")
     md, gtdir = run["md"], run["gtdir"]
-    scene_path = os.path.join(srun["recon"], "sfm_data.json")
+    scene_path = trun["scene_bin"]
     tw = os.path.join(run["work"], "multigpu")
     os.makedirs(tw, exist_ok=True)
     single = trun["refine"]
@@ -3061,7 +3376,7 @@ def phase_multigpu(kernel_mods, run, srun, trun, dev="cuda"):
                 os.environ["OMT_DIST_BACKEND"] = backend
             else:
                 os.environ.pop("OMT_DIST_BACKEND", None)
-            r = os.path.join(tw, f"{tag}.json")
+            r = os.path.join(tw, f"{tag}.bin")
             secs, printed, launches = run_stages(
                 kernel_mods, [("refine", ["refine", "-i", scene_path, "-o", r, "-n", "30",
                                           "-d", str(MG_RANKS)]),
@@ -3243,12 +3558,13 @@ def unfused_camera(seg_sum, kind, args, plans):
             seg_sum.seg_sum(seg_sum.outer_flat(ji), intr, I, plans[1]).reshape(I, 8, 8))
 
 
-def phase_measure_k2(seg_sum, prob):
+def phase_measure_k2(seg_sum, prob, tag="[measure]", profiled=True):
     """K2 at the main path's own shapes, the final INCREMENTAL bundle
     adjustment: the fused camera_jtu (u = -r, as the gradient) and
     camera_jtj on its Jacobians with the plans the BA uses, beside the
     unfused sequence; and the generic K2 on the (O, 6) J^T r and (O, 36)
-    J^T J pose payloads, beside index_add_."""
+    J^T J pose payloads, beside index_add_.  With `profiled` false no
+    profiler session runs and the device time is not measured."""
     import torch
 
     from openmvg_torch.sfm import ba
@@ -3265,21 +3581,21 @@ def phase_measure_k2(seg_sum, prob):
         again = camera_call(seg_sum, kind, args, plans)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"camera_{kind} on the final BA: two launches differ")
+            fail(f"{tag} camera_{kind} on the final BA: two launches differ")
         err = camera_check(seg_sum, kind, got, args, 1e-5)
         if err is None:
-            fail(f"camera_{kind} on the final BA: outside 1e-5 (1 + S)")
+            fail(f"{tag} camera_{kind} on the final BA: outside 1e-5 (1 + S)")
         uf = unfused_camera(seg_sum, kind, args, plans)
         delta = max((a - b).abs().max().item() for a, b in zip(got, uf))
         ms = cuda_ms(lambda: camera_call(seg_sum, kind, args, plans), 50)
-        dev_ms, n_k = device_ms(lambda: camera_call(seg_sum, kind, args, plans), 50,
-                                "camera_sums_kernel")
+        dev_ms, n_k = (device_ms(lambda: camera_call(seg_sum, kind, args, plans), 50,
+                                 "camera_sums_kernel") if profiled else (None, 0))
         unfused_ms = cuda_ms(lambda: unfused_camera(seg_sum, kind, args, plans), 50)
         plain_fn = seg_sum.camera_jtu_plain if kind == "jtu" else seg_sum.camera_jtj_plain
         pargs = args if kind == "jtu" else args[:2] + args[3:]
         plain_ms = cuda_ms(lambda: plain_fn(*pargs), 20)
         bound, by = camera_bound_ms(O, P, I, kind, Jp6.element_size())
-        log(f"[measure] camera_{kind} on the final BA (O {O}, P {P}, I {I}, chunks "
+        log(f"{tag} camera_{kind} on the final BA (O {O}, P {P}, I {I}, chunks "
             f"{plans[0].chunk_start.shape[0]} + {plans[1].chunk_start.shape[0]}): max |err| "
             f"{err:.3g}, repeatable, max |fused - unfused| {delta:.3g}; kernel {ms:.4f} ms "
             f"(device {fmt_ms(dev_ms)}, {n_k} launches in 50 calls), unfused sequence "
@@ -3296,15 +3612,15 @@ def phase_measure_k2(seg_sum, prob):
         torch.cuda.synchronize()
         err = seg_sum_check(seg_sum, got, vals, ids, num, 1e-5)
         if err is None:
-            fail(f"seg_sum on the final BA's {name}: outside 1e-5 (1 + S)")
+            fail(f"{tag} seg_sum on the final BA's {name}: outside 1e-5 (1 + S)")
         ms = cuda_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50)
-        dev_ms, _ = device_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50,
-                              "seg_sum_kernel")
+        dev_ms, _ = (device_ms(lambda: seg_sum.seg_sum(vals, ids, num, plan), 50,
+                               "seg_sum_kernel") if profiled else (None, 0))
         plain_ms = cuda_ms(lambda: seg_sum.seg_sum_plain(vals, ids, num), 20)
         lib_ms = cuda_ms(lambda: library_seg_sum(vals, ids, num), 20)
         k = vals.shape[1]
         bound, by = seg_sum_bound_ms(O, k, num, vals.element_size())
-        log(f"[measure] seg_sum {name} on the final BA (O {O}, k {k}, num {num}, "
+        log(f"{tag} seg_sum {name} on the final BA (O {O}, k {k}, num {num}, "
             f"{int(plan.perm.shape[0])} valid rows): max |err| {err:.3g}; "
             f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
@@ -3474,6 +3790,7 @@ def main():
     kres = phase_kernel(two_nn, dev)
     k2_errs = phase_kernel_k2(seg_sum, dev)
     k3_err = phase_kernel_k3(smatvec, dev)
+    nmatch = native_match_check(two_nn, kres.pop("headline"), kres["headline_ms"])
     if args.views != 100 or args.size != 1024:
         log(f"[pipeline] CUT: {args.views} views of {args.size}^2 "
             "(the realistic scale is 100 views of 1024^2)")
@@ -3485,9 +3802,14 @@ def main():
             fail("K3 launched in the INCREMENTAL phase, where it is off")
         log(f"[sfm] K2 launches in the INCREMENTAL sfm stage: {srun['launches']['seg_sum']} "
             "(one a call)")
-        v2run = phase_sfm2(mods, run, args.views)
+        nba = native_ba_check(srun["scene"])
+        jrun = phase_jpeg(mods, run, args.views, args.size, mhz)
+        cut_views = min(args.views, CUT_VIEWS)
+        crun, cut_matches = (cut_run(run, cut_views, "sfm2 and stellar")
+                             if cut_views < args.views else (run, "matches.f.bin"))
+        v2run = phase_sfm2(mods, crun, cut_views, cut_matches)
         grun = phase_global(mods, run, args.views)
-        strun = phase_stellar(mods, run, args.views)
+        strun = phase_stellar(mods, crun, cut_views, cut_matches)
         mrun = phase_matchers(mods, run, srun, args.views)
         trun = phase_tools(mods, run, srun, args.views)
         mgrun = phase_multigpu(mods, run, srun, trun)
@@ -3506,7 +3828,7 @@ def main():
     m3 = phase_measure_k3(smatvec, seg_sum, final_problem(grun["scene"]))
 
     def new_paths(name):
-        return {"launches_v2": v2run["launches"][name],
+        return {"launches_jpeg": jrun["launches"][name], "launches_v2": v2run["launches"][name],
                 "launches_stellar": strun["launches"][name],
                 "launches_camera3": c3run["launches"][name],
                 "launches_tools": {k: v[name] for k, v in trun["launches_by_step"].items()}}
@@ -3530,6 +3852,10 @@ def main():
         "ms": meas["ms"], "device_ms": meas["device_ms"], "plain_ms": meas["plain_ms"],
         "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
         "library_ms": meas["library_ms"], "epilogue_floor_ms": meas["epilogue_floor_ms"],
+        "cpu_baseline_ms": nmatch["ms"],
+        "cpu_baseline": dict(nmatch, what="openmvg_torch.native.bench_match_2nn on the "
+                             "headline 16 pairs, 1,024 A rows a pair planted (host CPU, "
+                             "AVX2 + OpenMP)"),
         "max_sm_clock_mhz": mhz, "headline_16x4096": {"ms": kres["headline_ms"], "plain_ms": kres["headline_plain_ms"],
                              "library_ms": kres["headline_lib_ms"],
                              "bound_ms": kres["headline_bound_ms"]},
@@ -3539,12 +3865,18 @@ def main():
         "tools_shapes": {"bench_ann": trun["k1_at_bench_ann"]},
         "launches_multigpu": multigpu_launches("two_nn"),
         "multigpu_shapes": {"scaling_bench": mgrun["shapes"]["scaling_k1"]},
+        "jpeg_shapes": {"matches_batch": {k: v for k, v in
+                                          jrun["shapes"]["k1_matches_batch"].items()
+                                          if k != "akaze_float_device_ms"}},
     }, {
         "name": "seg_sum", "route": "cuda", "source": kernels[1]["source"],
         "replaces": kernels[1]["replaces"], "launches": srun["launches"]["seg_sum"],
         "max_abs_err": k2["max_abs_err"], "max_abs_err_cases": k2_errs,
         "ms": k2["ms"], "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+        "cpu_baseline_ms": nba["ms"],
+        "cpu_baseline": dict(nba, what="openmvg_torch.native.bench_ba_lm_step, one float64 LM "
+                             "step at the final INCREMENTAL problem (host CPU, OpenMP)"),
         "unfused_ms": k2["unfused_ms"], "fused_vs_unfused_max_abs": k2["fused_vs_unfused"],
         "shape": {"O": k2["O"], "P": k2["P"], "I": k2["I"]}, "camera_jtj": m2["jtj"],
         "generic_jtr_k6": m2["jtr_k6"], "generic_jtj_k36": m2["jtj_k36"],
@@ -3558,6 +3890,7 @@ def main():
         "launches_spherical_global": sprun["GLOBAL"]["launches"]["seg_sum"],
         "launches_multigpu": multigpu_launches("seg_sum"),
         "multigpu_shapes": {k: v for k, v in mgrun["shapes"].items() if k != "scaling_k1"},
+        "jpeg_shapes": jrun["shapes"]["k2_final_ba"],
     }, {
         "name": "smatvec", "route": "cuda", "source": kernels[2]["source"],
         "replaces": kernels[2]["replaces"], "launches": grun["launches"]["smatvec"],
@@ -3581,6 +3914,8 @@ def main():
         "global_s": grun["secs"], "global_engine_s": grun["engine"],
         "global_polish_steps": grun["polish_steps"],
         "global_pairs_kept": grun["pairs_kept"], "global_eval": evals(grun),
+        "jpeg": {k: v for k, v in jrun.items() if k not in ("launches", "shapes")},
+        "sfm2_views": cut_views, "stellar_views": cut_views,
         "stellar_s": strun["secs"], "stellar_engine_s": strun["engine"],
         "stellar_pods": strun["pods"], "stellar_eval": evals(strun),
         "camera3_views": c3_views, "camera3_s": c3run["secs"],
@@ -3593,7 +3928,7 @@ def main():
         "spherical": sprun, "cubify": curun, "vo": vorun,
         "tools": {k: v for k, v in trun.items()
                   if k not in ("launches_by_step", "k2_at_localize", "k2_at_cluster",
-                               "k1_at_bench_ann")},
+                               "k1_at_bench_ann", "scene_bin")},
         "multigpu": {k: v for k, v in mgrun.items() if k not in ("rank_launches", "shapes")}}
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all")
     print(json.dumps(line))

@@ -1,12 +1,23 @@
 """Host-side image IO + EXIF (counterpart: openmvg_tpu/io/image.py).
 
-The reference reads every format through PIL.  The machines the port runs
-on need not have PIL, so 8-bit PNG (gray, gray+alpha, RGB, RGBA; the five
-row filters; no interlace) is read and written here with zlib and struct.
-RGB -> gray uses PIL's "L" rounding, (19595 R + 38470 G + 7471 B + 0x8000)
->> 16 (Rec.601 weights, image_converter.hpp Rgb2Gray), so both packages
-see the same gray values.  JPEG/TIFF and EXIF still go through PIL, which
-is imported only for them.
+The reference reads and writes every format through PIL.  The machines
+the port runs on need not have PIL, so PNG and JPEG never touch it here,
+even where it is installed:
+- PNG is read here with zlib and struct: colour types 0, 2, 3 (through
+  PLTE; tRNS dropped, as convert("RGB") drops it), 4 and 6, bit depths 1,
+  2, 4, 8 and 16, the five row filters and Adam7 interlacing; and written
+  as 8-bit gray or RGB with the Up filter;
+- JPEG goes through io/jpeg.py (csrc/jpeg.cpp, libjpeg-turbo's default
+  decode and PIL's default encode);
+- EXIF of a JPEG APP1 block or a PNG eXIf chunk goes through io/exif.py,
+  with PIL's getexif() semantics.
+read_image applies PIL's "L" and "RGB" conversions of each PNG mode, as
+Pillow 12.1 does them: 1-bit gray to 0/255, 2-bit x 85, 4-bit x 17,
+16-bit gray clipped at 255 (not scaled), 16-bit RGB(A) and gray+alpha by
+their high byte, palette entries past PLTE black, alpha dropped, and RGB
+-> gray by PIL's "L" rounding, (19595 R + 38470 G + 7471 B + 0x8000) >> 16
+(Rec.601 weights, image_converter.hpp Rgb2Gray).  TIFF and the other
+formats still go through PIL, imported only for them.
 """
 
 import os
@@ -16,13 +27,20 @@ from typing import Optional
 
 import numpy as np
 
+from openmvg_torch.io import exif as _exif
+from openmvg_torch.io import jpeg as _jpeg
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
-def _is_png(path):
+def _head(path, n=8):
     with open(path, "rb") as f:
-        return f.read(8) == _PNG_SIG
+        return f.read(n)
 
 
 def _png_chunks(data):
@@ -38,8 +56,7 @@ def _png_chunks(data):
 
 def png_size(path):
     """(width, height) from the IHDR chunk."""
-    with open(path, "rb") as f:
-        head = f.read(24)
+    head = _head(path, 24)
     if head[:8] != _PNG_SIG or head[12:16] != b"IHDR":
         raise ValueError(f"{path}: not a PNG file")
     return struct.unpack_from(">II", head, 16)
@@ -64,39 +81,18 @@ def _unfilter_slow(ftype, raw, prior, bpp):
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def read_png(path) -> np.ndarray:
-    """8-bit PNG -> (H, W) or (H, W, C) uint8 array."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIG:
-        raise ValueError(f"{path}: not a PNG file")
-    idat = []
-    hdr = None
-    for ctype, body in _png_chunks(data):
-        if ctype == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-    if hdr is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"{path}: PNG bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}: only non-interlaced 8-bit gray/RGB(A) is read")
-    bpp = _CHANNELS[ctype]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw[: h * (stride + 1)].reshape(h, stride + 1)
+def _unfilter(raw, h, stride, bpp, path):
+    """(h, stride + 1) filtered rows -> (h, stride) bytes."""
     out = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for r in range(h):
         ftype, line = int(raw[r, 0]), raw[r, 1:]
         if ftype == 0:
             cur = line
-        elif ftype == 1:  # Sub: running sum per channel, mod 256
-            cur = np.cumsum(line.reshape(w, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
+        elif ftype == 1:  # Sub: running sum per byte of a pixel, mod 256
+            pad = (-stride) % bpp
+            cur = np.cumsum(np.concatenate([line, np.zeros(pad, np.uint8)]).reshape(-1, bpp),
+                            axis=0, dtype=np.uint8).reshape(-1)[:stride]
         elif ftype == 2:  # Up
             cur = line + prior
         elif ftype in (3, 4):
@@ -105,7 +101,95 @@ def read_png(path) -> np.ndarray:
             raise ValueError(f"{path}: bad PNG filter type {ftype}")
         out[r] = cur
         prior = out[r]
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    return out
+
+
+def _unpack(rows, w, ch, depth):
+    """(h, stride) unfiltered bytes -> (h, w, ch) samples: uint8 for depths
+    up to 8 (unscaled levels), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2")[:, :w * ch].astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1)[:, :w * ch * depth].reshape(h, w * ch, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8).reshape(h, w, ch)
+
+
+def _decode_png(data, path):
+    """A PNG file's bytes -> (samples (H, W, C), colour type, bit depth,
+    palette (256, 3) uint8 or None)."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    idat, hdr, plte = [], None, None
+    for ctype, body in _png_chunks(data):
+        if ctype == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body[:13])
+        elif ctype == b"PLTE":
+            plte = body
+        elif ctype == b"IDAT":
+            idat.append(body)
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG colour type {ctype}, bit depth {depth}, interlace "
+                         f"{interlace} is not valid")
+    ch = _CHANNELS[ctype]
+    bpp = max(1, ch * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        block = raw[pos:pos + ph * (stride + 1)]
+        if block.size < ph * (stride + 1):
+            raise ValueError(f"{path}: truncated PNG image data")
+        pos += ph * (stride + 1)
+        rows = _unfilter(block.reshape(ph, stride + 1), ph, stride, bpp, path)
+        samples[y0::dy, x0::dx] = _unpack(rows, pw, ch, depth)
+    palette = None
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+        palette[:len(entries)] = entries
+    return samples, ctype, depth, palette
+
+
+def read_png(path) -> np.ndarray:
+    """PNG -> its samples as stored: (H, W) or (H, W, C) uint8 for bit
+    depths up to 8 (gray levels and palette indices unscaled), uint16 for
+    16; alpha kept.  read_image gives PIL's "L" and "RGB" readings."""
+    with open(path, "rb") as f:
+        samples = _decode_png(f.read(), path)[0]
+    return samples[..., 0] if samples.shape[2] == 1 else samples
+
+
+def _png_pil(samples, ctype, depth, palette, grayscale):
+    """PIL's convert("L") / convert("RGB") of the mode Pillow opens the PNG
+    in (PngImagePlugin._MODES)."""
+    if ctype == 3:
+        rgb = palette[samples[..., 0]]
+        return rgb_to_gray_u8(rgb) if grayscale else rgb
+    if depth == 16:
+        if ctype == 0:  # "I;16": clipped at 255
+            g = np.minimum(samples[..., 0], 255).astype(np.uint8)
+        else:  # "RGB;16B", "RGBA;16B", "LA;16B" -> the high byte
+            samples = (samples >> 8).astype(np.uint8)
+    elif ctype == 0:  # "1", "L;2", "L;4", "L"
+        g = samples[..., 0] * np.uint8({1: 255, 2: 85, 4: 17, 8: 1}[depth])
+    if ctype in (0, 4):
+        g = g if ctype == 0 else samples[..., 0]
+        return g if grayscale else np.repeat(g[..., None], 3, axis=2)
+    rgb = samples[..., :3]
+    return rgb_to_gray_u8(rgb) if grayscale else np.ascontiguousarray(rgb)
 
 
 def _png_chunk(ctype, body):
@@ -137,45 +221,90 @@ def rgb_to_gray_u8(rgb):
              + 0x8000) >> 16).astype(np.uint8)
 
 
+def _pil(path, what):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: {what} of a file that is neither PNG nor JPEG (TIFF, "
+                          "BMP, ...) needs PIL, which is not installed") from e
+    return Image
+
+
 def read_image(path, grayscale=False):
     """grayscale: (H, W) float32 in [0, 1]; else (H, W, 3) uint8 RGB."""
-    if _is_png(path):
-        a = read_png(path)
-        if a.ndim == 3 and a.shape[2] in (2, 4):  # drop alpha
-            a = a[..., :-1] if a.shape[2] == 4 else a[..., 0]
-        if grayscale:
-            g = a if a.ndim == 2 else rgb_to_gray_u8(a)
-            return g.astype(np.float32) / 255.0
-        return a if a.ndim == 3 else np.repeat(a[..., None], 3, axis=2)
-    from PIL import Image
-
-    im = Image.open(path)
-    if grayscale:
-        return np.asarray(im.convert("L"), np.float32) / 255.0
-    return np.asarray(im.convert("RGB"), np.uint8)
+    head = _head(path)
+    if head == _PNG_SIG:
+        with open(path, "rb") as f:
+            samples, ctype, depth, palette = _decode_png(f.read(), path)
+        a = _png_pil(samples, ctype, depth, palette, grayscale)
+    elif _jpeg.is_jpeg(head):
+        a = _jpeg.read_jpeg(path)
+        if grayscale and a.ndim == 3:
+            a = rgb_to_gray_u8(a)
+        elif not grayscale and a.ndim == 2:
+            a = np.repeat(a[..., None], 3, axis=2)
+    else:
+        im = _pil(path, "reading").open(path)
+        a = np.asarray(im.convert("L" if grayscale else "RGB"), np.uint8)
+    return a.astype(np.float32) / 255.0 if grayscale else a
 
 
 def write_image(path, array):
     """Float arrays in [0, 1] are scaled by 255 and truncated, as the
-    reference writer does.  PNG is written here; other formats via PIL."""
+    reference writer does.  PNG and JPEG are written here (JPEG as the
+    bytes of PIL's default save); other formats via PIL."""
     a = np.asarray(array)
     if a.dtype != np.uint8:
         a = np.clip(a * 255.0, 0, 255).astype(np.uint8)
-    if path.lower().endswith(".png"):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
         write_png(path, a)
-        return
-    from PIL import Image
-
-    Image.fromarray(a).save(path)
+    elif ext in (".jpg", ".jpeg"):
+        _jpeg.write_jpeg(path, a)
+    else:
+        _pil(path, "writing").fromarray(a).save(path)
 
 
 def read_exif(path) -> dict:
-    """{width, height} for PNG; {model, make, focal_mm, width, height, gps}
-    (keys best-effort) for JPEG/TIFF through PIL."""
-    if _is_png(path):
+    """{width, height} and, where the file has an EXIF block with tags,
+    {model, make, focal_mm, gps} (keys best-effort), as the reference
+    builds them from PIL's getexif()."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _PNG_SIG:
         w, h = png_size(path)
-        return {"width": w, "height": h}
-    from PIL import ExifTags, Image
+        chunks = [body for ctype, body in _png_chunks(data) if ctype == b"eXIf"]
+        block = b"Exif\x00\x00" + chunks[-1] if chunks else None  # the last, as PIL keeps it
+    elif _jpeg.is_jpeg(data):
+        w, h = _jpeg.jpeg_size_bytes(data)
+        block = _jpeg.jpeg_exif_block(data)
+    else:
+        return _read_exif_pil(path)
+    out = {"width": w, "height": h}
+    if block is None:
+        return out
+    try:
+        tags, n_tags, gps = _exif.parse_exif(block)
+    except _exif.MalformedExif:  # keep the size only, as the reference does
+        return out
+    if not n_tags:
+        return out
+    out["model"] = str(tags.get(_exif.MODEL, "")).strip()
+    out["make"] = str(tags.get(_exif.MAKE, "")).strip()
+    focal = tags.get(_exif.FOCAL_LENGTH)
+    if focal is not None:
+        try:
+            out["focal_mm"] = float(focal)
+        except (TypeError, ValueError):
+            pass
+    if gps:
+        out["gps"] = _parse_gps(gps)
+    return out
+
+
+def _read_exif_pil(path):
+    Image = _pil(path, "EXIF")
+    from PIL import ExifTags
 
     out = {}
     with Image.open(path) as im:
