@@ -1,0 +1,8 @@
+"""Share of the traced window (reconstructions) in which no operation runs
+on the card, from the profiler's device events."""
+
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.device_idle(ctx)
