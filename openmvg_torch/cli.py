@@ -48,8 +48,11 @@ OMT_NUM_PROCESSES / OMT_PROCESS_ID variables, or runtime.spawn of
 runtime.run_cli); rank 0 writes and prints.
 
 --profile DIR (before the subcommand), or OMT_PROFILE_DIR, records the
-command under torch.profiler and writes a Chrome trace into DIR.  A
-missing input file prints "error: file not found: <name>" and returns 1.
+command under torch.profiler and writes a Chrome trace into DIR, which
+holds the program's spans (utils/logging: the stages, and each bundle
+adjustment's ba.adjust, ba.lm_step, its phases and host reads); the
+session's counters are logged in one line as it ends.  A missing input
+file prints "error: file not found: <name>" and returns 1.
 
 Flags, defaults and printed summaries are the reference's, plus --device:
 every stage runs on `cuda` unless `--device cpu` is given, and raises when
@@ -1242,7 +1245,8 @@ def build_parser():
     ap = argparse.ArgumentParser(prog="openmvg_torch",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
-                    help="directory for a torch.profiler trace of the command")
+                    help="directory for a torch.profiler trace of the command, "
+                         "with the program's spans (stages, bundle adjustment phases)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def stage(name, fn):

@@ -42,6 +42,14 @@ The LM loop and the CG loop are host loops; each reads its stopping test
 from the device once per iteration.  The dtype is a parameter: the engine
 runs float32 on the card, the tests float64.  Small dense inverses use
 ops/linalg (no cuSOLVER).
+
+While a profiler session records, each solve leaves spans and counters
+(utils/logging): ba.adjust holds ba.plans, host_read and ba.lm_step; each
+step holds ba.cost (both costs), ba.jacobians, ba.schur (the solve up to
+the CG loop), ba.cg (the loop, a host_read for each stopping test) and
+ba.backsub, all with device times on the card.  Every read of the device
+goes through host_read.  The counters: ba.cg_iterations (the
+iterations each CG loop ran) and ba.lm_accepted (the accepted steps).
 """
 
 import os
@@ -57,6 +65,7 @@ from openmvg_torch.ops import seg_sum as k2
 from openmvg_torch.ops import smatvec as k3
 from openmvg_torch.utils import hostmath
 from openmvg_torch.utils.collectives import all_reduce
+from openmvg_torch.utils.logging import count, host_read, span
 
 # refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
 ADJUST_ALL = "ALL"
@@ -456,110 +465,119 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig, group=Non
     n_intr = p.intr_params.shape[0]
     n_pts = p.X.shape[0]
     dt, dev = p.X.dtype, p.X.device
-    eye3 = torch.eye(3, dtype=dt, device=dev)
+    on_card = p.X.is_cuda
 
-    # point blocks Hpp = sum Jx^T Jx + lam diag; fixed/padded points get
-    # an identity block (zero rhs -> zero update)
-    Hpp = _reduce(pgroup, _block_outer_pt(Jx3, p, n_pts))
-    dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
-    Hpp = Hpp + lam * torch.clamp(dpp, min=1e-12)[..., None] * eye3
-    Hpp = Hpp + ((1.0 - p.mask_X) + 1e-12)[:, None, None] * eye3
+    with span("ba.schur", device=on_card):
+        eye3 = torch.eye(3, dtype=dt, device=dev)
+        # point blocks Hpp = sum Jx^T Jx + lam diag; fixed/padded points get
+        # an identity block (zero rhs -> zero update)
+        Hpp = _reduce(pgroup, _block_outer_pt(Jx3, p, n_pts))
+        dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        Hpp = Hpp + lam * torch.clamp(dpp, min=1e-12)[..., None] * eye3
+        Hpp = Hpp + ((1.0 - p.mask_X) + 1e-12)[:, None, None] * eye3
 
-    gp, gi = _reduce(group, *_camera_rmatvec(-r, p, Jp6, Ji8, n_pose, n_intr))
-    gx = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, -r), p, n_pts))
+        gp, gi = _reduce(group, *_camera_rmatvec(-r, p, Jp6, Ji8, n_pose, n_intr))
+        gx = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, -r), p, n_pts))
 
-    Jprior, rprior = _prior_blocks(p)
-    Hprior = torch.einsum("pij,pik->pjk", Jprior, Jprior)
-    gprior = -torch.einsum("pij,pi->pj", Jprior, rprior)
+        Jprior, rprior = _prior_blocks(p)
+        Hprior = torch.einsum("pij,pik->pjk", Jprior, Jprior)
+        gprior = -torch.einsum("pij,pi->pj", Jprior, rprior)
 
-    Hcc_p, Hcc_i = _reduce(group, *_camera_jtj(p, Jp6, Ji8, n_pose, n_intr))
-    Hcc_p = Hcc_p + Hprior
-    dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
-    dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
+        Hcc_p, Hcc_i = _reduce(group, *_camera_jtj(p, Jp6, Ji8, n_pose, n_intr))
+        Hcc_p = Hcc_p + Hprior
+        dcc_p = torch.clamp(torch.diagonal(Hcc_p, dim1=-2, dim2=-1), min=1e-12)
+        dcc_i = torch.clamp(torch.diagonal(Hcc_i, dim1=-2, dim2=-1), min=1e-12)
 
-    # formed once per solve: every apply of Hpp^-1 is one batched product
-    Hpp_inv = linalg.inv_sym3(Hpp)
+        # formed once per solve: every apply of Hpp^-1 is one batched product
+        Hpp_inv = linalg.inv_sym3(Hpp)
 
-    def Hpp_solve(v):
-        return torch.einsum("lij,lj->li", Hpp_inv, v)
+        def Hpp_solve(v):
+            return torch.einsum("lij,lj->li", Hpp_inv, v)
 
-    # reduced rhs b = gc - E Hpp^-1 gx, E v = Jc^T (Jx v)
-    z = _bmatvec(Jx3, _pt_expand(Hpp_solve(gx), p))
-    bp, bi = _reduce(group, *_camera_rmatvec(z, p, Jp6, Ji8, n_pose, n_intr))
-    bp = gp + gprior - bp
-    bi = gi - bi
+        # reduced rhs b = gc - E Hpp^-1 gx, E v = Jc^T (Jx v)
+        z = _bmatvec(Jx3, _pt_expand(Hpp_solve(gx), p))
+        bp, bi = _reduce(group, *_camera_rmatvec(z, p, Jp6, Ji8, n_pose, n_intr))
+        bp = gp + gprior - bp
+        bi = gi - bi
 
-    # fixed parameters: zero J columns, unit diagonal (solves stay regular,
-    # updates stay zero)
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    eye8 = torch.eye(8, dtype=dt, device=dev)
-    fp, fi = p.mask_pose, p.mask_intr
-    Mp = Hcc_p + lam * dcc_p[..., None] * eye6
-    Mi = Hcc_i + lam * dcc_i[..., None] * eye8
-    Mp = Mp * (fp[:, :, None] * fp[:, None, :]) + eye6 * (1.0 - fp)[:, :, None]
-    Mi = Mi * (fi[:, :, None] * fi[:, None, :]) + eye8 * (1.0 - fi)[:, :, None]
-    Mp_inv = linalg.inv(Mp)
-    Mi_inv = linalg.inv(Mi)
+        # fixed parameters: zero J columns, unit diagonal (solves stay regular,
+        # updates stay zero)
+        eye6 = torch.eye(6, dtype=dt, device=dev)
+        eye8 = torch.eye(8, dtype=dt, device=dev)
+        fp, fi = p.mask_pose, p.mask_intr
+        Mp = Hcc_p + lam * dcc_p[..., None] * eye6
+        Mi = Hcc_i + lam * dcc_i[..., None] * eye8
+        Mp = Mp * (fp[:, :, None] * fp[:, None, :]) + eye6 * (1.0 - fp)[:, :, None]
+        Mi = Mi * (fi[:, :, None] * fi[:, None, :]) + eye8 * (1.0 - fi)[:, :, None]
+        Mp_inv = linalg.inv(Mp)
+        Mi_inv = linalg.inv(Mi)
 
-    fused = _fused_smatvec_plan(p, Jp6) if group is None else None
+        fused = _fused_smatvec_plan(p, Jp6) if group is None else None
 
-    def S_matvec(vp, vi):
-        """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
-        if fused is not None:
-            sp, si = k3.smatvec(Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hpp_inv,
-                                p.pt_obs.row_point, p.pt_obs.groups, fused)
-        else:
-            u = _camera_matvec(vp, vi, p, Jp6, Ji8)
-            y = Hpp_solve(_reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts)))
-            sp, si = _reduce(group, *_camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p,
-                                                     Jp6, Ji8, n_pose, n_intr))
-        sp = sp + torch.einsum("pij,pj->pi", Hprior, vp) + lam * dcc_p * vp
-        si = si + lam * dcc_i * vi
-        return sp, si
+        def S_matvec(vp, vi):
+            """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
+            if fused is not None:
+                sp, si = k3.smatvec(Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hpp_inv,
+                                    p.pt_obs.row_point, p.pt_obs.groups, fused)
+            else:
+                u = _camera_matvec(vp, vi, p, Jp6, Ji8)
+                y = Hpp_solve(_reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts)))
+                sp, si = _reduce(group, *_camera_rmatvec(u - _bmatvec(Jx3, _pt_expand(y, p)), p,
+                                                         Jp6, Ji8, n_pose, n_intr))
+            sp = sp + torch.einsum("pij,pj->pi", Hprior, vp) + lam * dcc_p * vp
+            si = si + lam * dcc_i * vi
+            return sp, si
 
-    def M_inv(vp, vi):
-        return (torch.einsum("pij,pj->pi", Mp_inv, vp),
-                torch.einsum("pij,pj->pi", Mi_inv, vi))
+        def M_inv(vp, vi):
+            return (torch.einsum("pij,pj->pi", Mp_inv, vp),
+                    torch.einsum("pij,pj->pi", Mi_inv, vi))
 
-    def dot(a, c):
-        return (a[0] * c[0]).sum() + (a[1] * c[1]).sum()
+        def dot(a, c):
+            return (a[0] * c[0]).sum() + (a[1] * c[1]).sum()
 
-    # PCG on the reduced camera system, stopped at ||r|| <= cg_tol ||b||
-    b = (bp, bi)
-    x = (torch.zeros_like(bp), torch.zeros_like(bi))
-    rr = b
-    zz = M_inv(*rr)
-    pp = zz
-    rz = dot(rr, zz)
-    tol2 = cfg.cg_tol ** 2 * dot(b, b)
-    for _ in range(cfg.cg_iterations):
-        if not bool(dot(rr, rr) > tol2):
-            break
-        Ap = S_matvec(*pp)
-        denom = dot(pp, Ap)
-        alpha = rz / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
-        x = (x[0] + alpha * pp[0], x[1] + alpha * pp[1])
-        rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+        # PCG on the reduced camera system, stopped at ||r|| <= cg_tol ||b||
+        b = (bp, bi)
+        x = (torch.zeros_like(bp), torch.zeros_like(bi))
+        rr = b
         zz = M_inv(*rr)
-        rz_new = dot(rr, zz)
-        beta = rz_new / torch.where(rz.abs() < 1e-30, torch.full_like(rz, 1e-30), rz)
-        pp = (zz[0] + beta * pp[0], zz[1] + beta * pp[1])
-        rz = rz_new
-    d_pose = x[0] * p.mask_pose
-    d_intr = x[1] * p.mask_intr
+        pp = zz
+        rz = dot(rr, zz)
+        tol2 = cfg.cg_tol ** 2 * dot(b, b)
 
-    # back-substitute points: d_X = Hpp^-1 (gx - E^T dc)
-    u = _camera_matvec(d_pose, d_intr, p, Jp6, Ji8)
-    w = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
-    d_X = Hpp_solve(gx - w) * p.mask_X[:, None]
+    with span("ba.cg", device=on_card):
+        n_it = 0
+        for _ in range(cfg.cg_iterations):
+            if not host_read(dot(rr, rr) > tol2):
+                break
+            n_it += 1
+            Ap = S_matvec(*pp)
+            denom = dot(pp, Ap)
+            alpha = rz / torch.where(denom.abs() < 1e-30, torch.full_like(denom, 1e-30), denom)
+            x = (x[0] + alpha * pp[0], x[1] + alpha * pp[1])
+            rr = (rr[0] - alpha * Ap[0], rr[1] - alpha * Ap[1])
+            zz = M_inv(*rr)
+            rz_new = dot(rr, zz)
+            beta = rz_new / torch.where(rz.abs() < 1e-30, torch.full_like(rz, 1e-30), rz)
+            pp = (zz[0] + beta * pp[0], zz[1] + beta * pp[1])
+            rz = rz_new
+        count("ba.cg_iterations", n_it)
 
-    # predicted gain 0.5 d^T (lam D d + g); shard-local points' term summed
-    gain_x = (d_X * (lam * torch.clamp(dpp, min=1e-12) * d_X + gx)).sum()
-    if shard_points:
-        gain_x = _reduce(group, gain_x)
-    gain = 0.5 * ((d_pose * (lam * dcc_p * d_pose + gp)).sum()
-                  + (d_intr * (lam * dcc_i * d_intr + gi)).sum()
-                  + gain_x)
+    with span("ba.backsub", device=on_card):
+        d_pose = x[0] * p.mask_pose
+        d_intr = x[1] * p.mask_intr
+
+        # back-substitute points: d_X = Hpp^-1 (gx - E^T dc)
+        u = _camera_matvec(d_pose, d_intr, p, Jp6, Ji8)
+        w = _reduce(pgroup, _pt_seg_sum(_brmatvec(Jx3, u), p, n_pts))
+        d_X = Hpp_solve(gx - w) * p.mask_X[:, None]
+
+        # predicted gain 0.5 d^T (lam D d + g); shard-local points' term summed
+        gain_x = (d_X * (lam * torch.clamp(dpp, min=1e-12) * d_X + gx)).sum()
+        if shard_points:
+            gain_x = _reduce(group, gain_x)
+        gain = 0.5 * ((d_pose * (lam * dcc_p * d_pose + gp)).sum()
+                      + (d_intr * (lam * dcc_i * d_intr + gi)).sum()
+                      + gain_x)
     return d_pose, d_intr, d_X, gain
 
 
@@ -571,7 +589,7 @@ def _apply_step(p: BAProblem, d_pose, d_intr, d_X):
 def cam_fast_ok(p: BAProblem):
     """True when every intrinsic row is a plain PINHOLE."""
     kinds = p.intr_kind
-    return kinds.numel() > 0 and bool((kinds == cm.PINHOLE).all())
+    return kinds.numel() > 0 and host_read((kinds == cm.PINHOLE).all())
 
 
 def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
@@ -580,21 +598,26 @@ def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
     Returns (problem, lam, cost, accepted) with tensor lam/cost/accepted.
     `group` and `shard_points`: the sharded modes of schur_cg_solve; the
     costs are summed over the ranks, so every rank accepts alike."""
-    if cam_fast is None:
-        cam_fast = cam_fast_ok(p)
-    p = with_plans(p)
-    lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
-    cost0 = robust_cost(p, cfg, cam_fast, group)
-    r, Jp6, Ji8, Jx3 = jacobians(p, cfg, cam_fast)
-    d_pose, d_intr, d_X, _ = schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg, group,
-                                            shard_points)
-    p_new = _apply_step(p, d_pose, d_intr, d_X)
-    cost1 = robust_cost(p_new, cfg, cam_fast, group)
-    accept = cost1 < cost0
-    sel = {f: torch.where(accept, getattr(p_new, f), getattr(p, f))
-           for f in ("rotvec", "t", "intr_params", "X")}
-    lam_new = torch.where(accept, lam * cfg.lam_down, lam * cfg.lam_up)
-    return p._replace(**sel), lam_new, torch.where(accept, cost1, cost0), accept
+    on_card = p.X.is_cuda
+    with span("ba.lm_step", device=on_card):
+        if cam_fast is None:
+            cam_fast = cam_fast_ok(p)
+        p = with_plans(p)
+        lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
+        with span("ba.cost", device=on_card):
+            cost0 = robust_cost(p, cfg, cam_fast, group)
+        with span("ba.jacobians", device=on_card):
+            r, Jp6, Ji8, Jx3 = jacobians(p, cfg, cam_fast)
+        d_pose, d_intr, d_X, _ = schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg, group,
+                                                shard_points)
+        p_new = _apply_step(p, d_pose, d_intr, d_X)
+        with span("ba.cost", device=on_card):
+            cost1 = robust_cost(p_new, cfg, cam_fast, group)
+        accept = cost1 < cost0
+        sel = {f: torch.where(accept, getattr(p_new, f), getattr(p, f))
+               for f in ("rotvec", "t", "intr_params", "X")}
+        lam_new = torch.where(accept, lam * cfg.lam_down, lam * cfg.lam_up)
+        return p._replace(**sel), lam_new, torch.where(accept, cost1, cost0), accept
 
 
 def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False, group=None,
@@ -604,21 +627,24 @@ def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False, group=None,
     exceeds 1e10.  Returns (problem, final cost, accepted step count).
     `group` and `shard_points`: this rank's shard of a sharded solve (see
     lm_step)."""
-    cam_fast = cam_fast_ok(p)
-    p = with_plans(p)
-    lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
-    cost = float(robust_cost(p, cfg, cam_fast, group))
-    n_acc = 0
-    for it in range(cfg.max_iterations):
-        p, lam, new_cost, accept = lm_step(p, lam, cfg, cam_fast, group, shard_points)
-        new_cost, accept, lam_f = float(new_cost), bool(accept), float(lam)
-        n_acc += int(accept)
-        if verbose:
-            print(f"  LM it={it} cost={new_cost:.6g} lam={lam_f:.3g} accept={accept}")
-        converged = accept and cost - new_cost <= cfg.function_tolerance * max(cost, 1e-30)
-        cost = new_cost
-        if converged or lam_f > 1e10:
-            break
+    with span("ba.adjust"):
+        cam_fast = cam_fast_ok(p)
+        with span("ba.plans"):
+            p = with_plans(p)
+        lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
+        cost = host_read(robust_cost(p, cfg, cam_fast, group))
+        n_acc = 0
+        for it in range(cfg.max_iterations):
+            p, lam, new_cost, accept = lm_step(p, lam, cfg, cam_fast, group, shard_points)
+            new_cost, accept, lam_f = host_read(new_cost), host_read(accept), host_read(lam)
+            n_acc += int(accept)
+            count("ba.lm_accepted", int(accept))
+            if verbose:
+                print(f"  LM it={it} cost={new_cost:.6g} lam={lam_f:.3g} accept={accept}")
+            converged = accept and cost - new_cost <= cfg.function_tolerance * max(cost, 1e-30)
+            cost = new_cost
+            if converged or lam_f > 1e10:
+                break
     return p, cost, n_acc
 
 
@@ -743,15 +769,18 @@ def scene_from_problem(scene, p: BAProblem, maps):
     are ignored."""
     nP = len(maps["pose_ids"])
     nL = len(maps["point_ids"])
-    R = hostmath.expmap_np(p.rotvec[:nP].cpu().double().numpy())
-    t = p.t[:nP].cpu().double().numpy()
+    with span("host_read"):
+        rotvec = p.rotvec[:nP].cpu().double().numpy()
+        t = p.t[:nP].cpu().double().numpy()
+        params = p.intr_params[:len(maps["intr_ids"])].cpu().double().numpy()
+        Xout = p.X[:nL].cpu().double().numpy()
+    R = hostmath.expmap_np(rotvec)
     scene.pose_R[maps["pose_ids"]] = R
     scene.pose_C[maps["pose_ids"]] = -np.einsum("nji,nj->ni", R, t)
     newp = np.asarray(scene.cameras.params).copy()
-    newp[maps["intr_ids"]] = p.intr_params[:len(maps["intr_ids"])].cpu().double().numpy()
+    newp[maps["intr_ids"]] = params
     scene.cameras = scene.cameras._replace(params=newp)
     pids = maps["point_ids"]
-    Xout = p.X[:nL].cpu().double().numpy()
     n_scene = maps.get("n_scene_points")
     keep = pids < n_scene if n_scene is not None else np.ones(len(pids), bool)
     scene.X[pids[keep]] = Xout[keep]
