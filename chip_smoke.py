@@ -63,8 +63,8 @@ last line is printed):
             and requires >= 98 of 100 poses, eval position_rmse <= 0.006
             (0.2% of the 3.0 ring radius), reprojection rmse < 1 px, K2
             launched, >= 1 accepted polish step and one colour per landmark
-            and camera in colorized.ply; the fused S-matvec (K3) is off, as
-            by default, and must not launch.  Then the reference's CPU LM
+            and camera in colorized.ply; the fused S-matvec (K3), the
+            default for the card's float32 BAs, launched.  Then the reference's CPU LM
             baseline (openmvg_torch.native.bench_ba_lm_step) at the final
             scene's problem, its costs within 1e-10 relative of the f64
             polish's step with the same fixed intrinsics, both timed
@@ -89,18 +89,18 @@ last line is printed):
             matches of the first 50 views (a cut, printed, shared with
             stellar: init on them and their pairs' matches),
             then color and eval --html reading sfm_data.bin: the sfm gates
-            (K3 off), the reconstruction directory holding sfm_data.bin,
+            (K3 launched), the reconstruction directory holding sfm_data.bin,
             cloud_and_poses.ply and SfMReconstruction_Report.html, the eval
             HTML written, and convert of the .bin to .json reading back the
             same poses and landmarks exactly
-  global    with OMT_FUSED_SMATVEC=1 (this phase only): filter -g e on the
+  global    filter -g e on the
             pipeline's putative matches, sfm -s GLOBAL (written as
             sfm_data.bin), color and eval on
             cuda, every kernel's count set to 0 just before and read just
             after; prints the share of pairs the essential filter kept and
             the engine's stage seconds, and holds the sfm phase's gates with
             K2 and K3 both launched
-  stellar   with OMT_FUSED_SMATVEC=1 (this phase only): sfm -s STELLAR on the
+  stellar   sfm -s STELLAR on the
             filter f matches of the first 50 views (a cut, printed: init on
             them and their pairs' matches), color and eval; the sfm gates but the polish
             (STELLAR runs none, and must print 0 steps), K2 and K3 launched;
@@ -136,8 +136,8 @@ last line is printed):
             localized, each centre within 0.015 of the renderer's after the
             eval alignment, K2 launched; then K2's camera sums of one
             query's float64 pose-only BA against their plain version within
-            1e-12 (1 + S)); refine -n 30 with K3 off, then with
-            OMT_FUSED_SMATVEC=1 (the cost does not rise, rmse within 1e-3 px
+            1e-12 (1 + S)); refine -n 30 with K3's gate (ba.k3_gate)
+            patched to decline, then as by default (the cost does not rise, rmse within 1e-3 px
             of the input's and of each other, eval position_rmse <= 0.006, K2
             in both, K3 only in the second); cluster -n 4 (4 files whose views cover the
             posed views, K2; then the k-means Lloyd sums against
@@ -167,8 +167,8 @@ last line is printed):
             --profile DIR on refine, in a process of its own (one trace
             naming K2's kernel and the bundle_adjustment stage)
   multigpu  the sharded paths (openmvg_torch/parallel) on the card, after
-            tools and on its 100-view INCREMENTAL scene, with
-            OMT_FUSED_SMATVEC=1 set (K3 must stay off when sharded), each
+            tools and on its 100-view INCREMENTAL scene (K3 must stay
+            off when sharded), each
             run with every kernel's count set to 0 just before and read just
             after, on every rank: (a) refine -d 4 -n 30 through the CLI
             twice, plainly (one NCCL rank a card, so as many ranks as cards,
@@ -229,11 +229,10 @@ last line is printed):
             ring, many across the panoramas' seam), 0.5 px noise, 10% outlier
             matches, pairs up to 3 ring steps apart
             (utils/synthetic.py spherical_room_dataset); filter -g a, then
-            sfm -s INCREMENTAL (K3 off) and sfm -s GLOBAL with
-            OMT_FUSED_SMATVEC=1, each with the kernels' counts set to 0 just
+            sfm -s INCREMENTAL and sfm -s GLOBAL, each with the kernels' counts set to 0 just
             before and read just after: >= 98 poses, position rmse after
             7-DoF alignment <= 0.004 (0.2% of the ring radius), rmse < 1 px,
-            K2 launched, K3 in GLOBAL only, 0 polish steps, no triplet stage
+            K2 and K3 launched, 0 polish steps, no triplet stage
   cubify    one seeded 5376x2688 RGB panorama written as PNG through the CLI's
             cubify on the card; the six faces within 1 gray level of the
             port's CPU run of the same resampler
@@ -1162,22 +1161,16 @@ def phase_sfm(kernel_mods, run, n_views, engine="INCREMENTAL", matches="matches.
 
 
 def phase_global(kernel_mods, run, n_views):
-    """filter -g e -> sfm -s GLOBAL -> color -> eval with the fused S-matvec
-    switched on for this phase only."""
+    """filter -g e -> sfm -s GLOBAL -> color -> eval, K2 and K3 launched."""
     from openmvg_torch.io.matches_io import load_matches
 
     md = run["md"]
     putative = os.path.join(md, "matches.putative.bin")
     pre = [("filter", ["filter", "-i", run["sfm"], "-m", putative,
                        "-o", os.path.join(md, "matches.e.bin"), "-g", "e"])]
-    os.environ["OMT_FUSED_SMATVEC"] = "1"
-    try:
-        res = phase_sfm(kernel_mods, run, n_views, engine="GLOBAL", matches="matches.e.bin",
-                        fmt="bin",
-                        pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global",
-                        tag="[global]")
-    finally:
-        del os.environ["OMT_FUSED_SMATVEC"]
+    res = phase_sfm(kernel_mods, run, n_views, engine="GLOBAL", matches="matches.e.bin",
+                    fmt="bin", pre=pre, need=("seg_sum", "smatvec"), recon_name="recon_global",
+                    tag="[global]")
     kept = load_matches(os.path.join(md, "matches.e.bin"))
     n_put = len(load_matches(putative))
     res["pairs_kept"] = (len(kept), n_put)
@@ -1189,7 +1182,7 @@ def phase_global(kernel_mods, run, n_views):
 
 def phase_sfm2(kernel_mods, run, n_views, matches="matches.f.bin"):
     """sfm -s INCREMENTALV2 --output_format bin -> color and eval --html
-    reading sfm_data.bin, K3 off; the sfm phase's gates, the files the
+    reading sfm_data.bin, K3 launched; the sfm phase's gates, the files the
     reconstruction directory must hold, and `convert` of the .bin to
     .json reading back the same poses and landmarks exactly."""
     import numpy as np
@@ -1199,9 +1192,8 @@ def phase_sfm2(kernel_mods, run, n_views, matches="matches.f.bin"):
 
     html = os.path.join(run["work"], "eval_v2.html")
     res = phase_sfm(kernel_mods, run, n_views, engine="INCREMENTALV2", matches=matches,
-                    recon_name="recon_v2", tag="[sfm2]", fmt="bin", html=html)
-    if res["launches"]["smatvec"] != 0:
-        fail("[sfm2] K3 launched, where it is off")
+                    recon_name="recon_v2", tag="[sfm2]", fmt="bin", html=html,
+                    need=("seg_sum", "smatvec"))
     need = {"sfm_data.bin", "cloud_and_poses.ply", "SfMReconstruction_Report.html"}
     have = set(os.listdir(res["recon"]))
     if not need <= have or not os.path.getsize(html):
@@ -1218,21 +1210,16 @@ def phase_sfm2(kernel_mods, run, n_views, matches="matches.f.bin"):
             fail(f"[sfm2] convert .bin -> .json changed {f}")
     log(f"[sfm2] {sorted(have)} written; eval html {os.path.getsize(html)} B; convert to "
         ".json read back the same poses and landmarks exactly; K2 launches "
-        f"{res['launches']['seg_sum']}, K3 0")
+        f"{res['launches']['seg_sum']}, K3 {res['launches']['smatvec']}")
     return res
 
 
 def phase_stellar(kernel_mods, run, n_views, matches="matches.f.bin"):
-    """sfm -s STELLAR -> color -> eval on the filter f matches, with the
-    fused S-matvec switched on for this phase only; the sfm phase's gates
-    but the polish (STELLAR has none), K2 and K3 launched."""
-    os.environ["OMT_FUSED_SMATVEC"] = "1"
-    try:
-        res = phase_sfm(kernel_mods, run, n_views, engine="STELLAR", matches=matches,
-                        recon_name="recon_stellar", tag="[stellar]",
-                        need=("seg_sum", "smatvec"), polish_gate=False)
-    finally:
-        del os.environ["OMT_FUSED_SMATVEC"]
+    """sfm -s STELLAR -> color -> eval on the filter f matches; the sfm
+    phase's gates but the polish (STELLAR has none), K2 and K3 launched."""
+    res = phase_sfm(kernel_mods, run, n_views, engine="STELLAR", matches=matches,
+                    recon_name="recon_stellar", tag="[stellar]",
+                    need=("seg_sum", "smatvec"), polish_gate=False)
     if res["polish_steps"] != 0:
         fail("[stellar] STELLAR ran an f64 polish; the reference has none")
     log(f"[stellar] {res['pods']} pods; K2 launches {res['launches']['seg_sum']}, K3 "
@@ -1360,8 +1347,8 @@ def phase_jpeg(kernel_mods, run, n_views, size, mhz):
     focal = float(load_sfm_data(sfm).cameras.params[0][0])
     if abs(focal - 1.2 * size) > 1e-9:
         fail(f"[jpeg] init without -f gave the focal {focal}, not 1.2 x {size}")
-    if launches["two_nn"] <= 0 or launches["smatvec"] != 0:
-        fail(f"[jpeg] launches {launches}: K1 must launch and K3 must not")
+    if launches["two_nn"] <= 0 or launches["smatvec"] <= 0:
+        fail(f"[jpeg] launches {launches}: K1 and K3 must launch")
     Rs, Cs, K, _ = run["gt"]
     kept = load_matches(os.path.join(md, "matches.f.bin"))
     n_pairs = sum(min(6, n_views - 1 - i) for i in range(n_views))
@@ -2223,9 +2210,8 @@ def phase_spherical(kernel_mods, work, dev, n_views=100, width=5376, height=2688
                     n_obs=300_000):
     """A SPHERICAL scene of n_views equirectangular views on the reference
     ring (utils/synthetic.py spherical_room_dataset): filter -g a on its
-    putative matches, then sfm -s INCREMENTAL (K3 off) and sfm -s GLOBAL
-    (OMT_FUSED_SMATVEC=1), each with every kernel's count set to 0 just
-    before and read just after."""
+    putative matches, then sfm -s INCREMENTAL and sfm -s GLOBAL, each with
+    every kernel's count set to 0 just before and read just after."""
     import numpy as np
 
     from openmvg_torch.io.matches_io import load_matches
@@ -2258,18 +2244,12 @@ def phase_spherical(kernel_mods, work, dev, n_views=100, width=5376, height=2688
                view_pose=np.arange(n_views, dtype=np.int32),
                view_intrinsic=np.zeros(n_views, np.int32), pose_valid=np.ones(n_views, bool),
                pose_R=R_gt, pose_C=C_gt)
-    for engine, fused, need in (("INCREMENTAL", False, ("seg_sum",)),
-                                ("GLOBAL", True, ("seg_sum", "smatvec"))):
+    for engine in ("INCREMENTAL", "GLOBAL"):
         tag = f"[spherical {engine}]"
         recon = os.path.join(root, engine.lower())
-        if fused:
-            os.environ["OMT_FUSED_SMATVEC"] = "1"
-        try:
-            secs, printed, launches = run_stages(kernel_mods, [(
-                "sfm", ["sfm", "-i", sfm, "-m", md, "-M", os.path.join(md, "matches.f.bin"),
-                        "-o", recon, "-s", engine])])
-        finally:
-            os.environ.pop("OMT_FUSED_SMATVEC", None)
+        secs, printed, launches = run_stages(kernel_mods, [(
+            "sfm", ["sfm", "-i", sfm, "-m", md, "-M", os.path.join(md, "matches.f.bin"),
+                    "-o", recon, "-s", engine])])
         text = printed["sfm"].getvalue()
         done = SFM_DONE.search(text)
         if done is None:
@@ -2294,11 +2274,9 @@ def phase_spherical(kernel_mods, work, dev, n_views=100, width=5376, height=2688
                  "ring radius)")
         if not err_px < 1.0:
             fail(f"{tag} reprojection rmse {err_px:.4f} px is not below 1 px")
-        for name in need:
+        for name in ("seg_sum", "smatvec"):
             if launches[name] <= 0:
                 fail(f"{tag} the sfm stage did not launch {name}")
-        if not fused and launches["smatvec"] != 0:
-            fail(f"{tag} K3 launched, where it is off")
         if polish != 0:
             fail(f"{tag} the f64 polish accepted {polish} steps; it takes only one shared "
                  "plain-PINHOLE intrinsic")
@@ -2831,7 +2809,7 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     seg_sum, two_nn = kernel_mods[1], kernel_mods[0]
     out["k2_at_localize"] = k2_at_localize(seg_sum, scene, md, qimgs[0], dev)
 
-    # 2. refine -n 30 twice: K3 off, then OMT_FUSED_SMATVEC=1
+    # 2. refine -n 30 twice: K3's gate declining the card, then as by default
     prob, _ = ba.problem_from_scene(scene, refine_intrinsics=ba.ADJUST_ALL, device=dev)
     cost0 = float(ba.robust_cost(prob, ba.BAConfig(), ba.cam_fast_ok(prob)))
     rmse0 = rmse(scene)
@@ -2839,14 +2817,15 @@ def phase_tools(kernel_mods, run, srun, n_views, dev="cuda"):
     refined = {}
     for tag, fused in (("refine", False), ("refine_fused", True)):
         r = os.path.join(tw, f"{tag}.bin")
-        if fused:
-            os.environ["OMT_FUSED_SMATVEC"] = "1"
+        gate = ba.k3_gate
+        if not fused:
+            ba.k3_gate = lambda p, group=None: False
         try:
             rec, printed = step(tag, [("refine", ["refine", "-i", scene_path, "-o", r,
                                                   "-n", "30"]),
                                       ("eval", ["eval", "-i", r, "-g", gtdir])])
         finally:
-            os.environ.pop("OMT_FUSED_SMATVEC", None)
+            ba.k3_gate = gate
         cost = float(printed["refine"].getvalue().split("BA: cost=")[1].split()[0])
         stats = json.loads(printed["eval"].getvalue())
         refined[tag] = rmse(load_sfm_data(r))
@@ -3346,7 +3325,7 @@ def phase_multigpu(kernel_mods, run, srun, trun, dev="cuda"):
     sharing the card; then one spawned group of 4 gloo ranks on the card
     for (b) both sharded BA modes against the same solve in one rank, (c)
     matches --ring_matching on and (d) scaling-bench -s 1,2,4.  K3 stays
-    off in every sharded run with OMT_FUSED_SMATVEC=1 set."""
+    off in every sharded run."""
     import numpy as np
     import torch
 
@@ -3367,8 +3346,7 @@ def phase_multigpu(kernel_mods, run, srun, trun, dev="cuda"):
     os.makedirs(tw, exist_ok=True)
     single = trun["refine"]
     out = {}
-    saved = {k: os.environ.get(k) for k in ("OMT_FUSED_SMATVEC", "OMT_DIST_BACKEND")}
-    os.environ["OMT_FUSED_SMATVEC"] = "1"
+    saved = {k: os.environ.get(k) for k in ("OMT_DIST_BACKEND",)}
     try:
         # (a) refine -d 4 through the CLI, twice
         for tag, backend in (("refine_d4_nccl", None), ("refine_d4_gloo", "gloo")):
@@ -3738,15 +3716,10 @@ def phase_measure_k3(smatvec, seg_sum, prob):
         + f"; max |fused - unfused| {delta:.3g} ({delta_rel:.3g} of the largest |output|)")
 
     counts = {}
-    for mode in ("unfused", "fused"):
-        if mode == "fused":
-            os.environ["OMT_FUSED_SMATVEC"] = "1"
+    for mode, q in (("unfused", p._replace(k3_plan=None)), ("fused", p)):
         seg_sum.LAUNCHES = smatvec.LAUNCHES = 0
-        try:
-            ba.schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg)
-            torch.cuda.synchronize()
-        finally:
-            os.environ.pop("OMT_FUSED_SMATVEC", None)
+        ba.schur_cg_solve(q, r, Jp6, Ji8, Jx3, lam, cfg)
+        torch.cuda.synchronize()
         counts[mode] = (seg_sum.LAUNCHES, smatvec.LAUNCHES)
     cg_unfused = counts["unfused"][0] - 3     # 3 + C: two J^T u, one J^T J, one a CG step
     cg_fused = counts["fused"][1] / per_call
@@ -3796,10 +3769,7 @@ def main():
             "(the realistic scale is 100 views of 1024^2)")
     with tempfile.TemporaryDirectory(prefix="omt_torch_smoke_") as work:
         run = phase_pipeline(mods, args.views, args.size, work)
-        os.environ.pop("OMT_FUSED_SMATVEC", None)   # INCREMENTAL runs unfused
-        srun = phase_sfm(mods, run, args.views)
-        if srun["launches"]["smatvec"] != 0:
-            fail("K3 launched in the INCREMENTAL phase, where it is off")
+        srun = phase_sfm(mods, run, args.views, need=("seg_sum", "smatvec"))
         log(f"[sfm] K2 launches in the INCREMENTAL sfm stage: {srun['launches']['seg_sum']} "
             "(one a call)")
         nba = native_ba_check(srun["scene"])

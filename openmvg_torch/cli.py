@@ -990,9 +990,9 @@ def _refine_rank(rank, n, path, refine, iterations):
 
 def cmd_refine(args):
     """Standalone bundle adjustment of an existing reconstruction
-    (Schur-CG LM, camera sums on K2; OMT_FUSED_SMATVEC=1 takes the CG
-    matvec through K3).  -d N > 1 shards it by point blocks over N ranks
-    (parallel/dist_ba.py; K3 off), one a card over NCCL, so at most the
+    (Schur-CG LM, camera sums on K2; on the card a float32 solve takes
+    the CG matvec through K3).  -d N > 1 shards it by point blocks over N
+    ranks (parallel/dist_ba.py; K3 off), one a card over NCCL, so at most the
     card count, or N sharing the cards over gloo with OMT_DIST_BACKEND=gloo
     or --device cpu; each rank's kernel launches are printed."""
     from openmvg_torch.io.ply import save_scene_ply

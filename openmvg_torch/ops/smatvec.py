@@ -28,14 +28,16 @@ jx (O, 2, 3) or (O, 6), float32.
 
 The kernel is two launches a call (see the note of smatvec.cu): a pass over
 tiles of whole points that writes e (O, 2), then kernel K2's camera sums of
-J^T e.  smatvec_plan, built once per solve, holds what does not change
-between the CG iterations: the int32 ids, the tile plan (tile_plan, which
-also checks that the group table is the contiguous point-major form that
-sfm/ba.py::build_pt_obs makes, and raises ValueError otherwise), kernel K2's
-plans of the pose and intrinsic ids, and on the card the e buffer and K2's
-chunk partials, so that a call allocates only its two outputs.  Like K2's
-arrival counters, that scratch serves one stream at a time: a plan must not
-serve two calls in flight on two streams.
+J^T e.  smatvec_plan, built once per problem (sfm/ba.py::with_plans,
+beside K2's plans), holds what does not change between the CG iterations
+and the LM steps: the int32 ids, the tile plan (tile_plan, which also
+checks on the device that the group table is the contiguous point-major
+form that sfm/ba.py::build_pt_obs makes, and raises ValueError otherwise),
+kernel K2's plans of the pose and intrinsic ids, and on the card the e
+buffer, K2's chunk partials and the checks of the ids and tables, so that
+a call checks only its float inputs and allocates only its two outputs.
+Like K2's arrival counters, that scratch serves one stream at a time: a
+plan must not serve two calls in flight on two streams.
 
 smatvec takes the plain version only for CPU tensors.  For a CUDA tensor it
 launches the kernel or raises; there is no fallback.
@@ -183,6 +185,7 @@ class SmatvecPlan(NamedTuple):
     part_p: Optional[torch.Tensor] = None   # K2 chunk partials of the pose half
     part_i: Optional[torch.Tensor] = None
     tables: Optional[_Tables] = None        # the pointers above, for the kernel
+    sizes: tuple = ()                       # element counts of jp, ji, jx, vp, vi, hpp_inv
 
 
 def tile_plan(row_point, groups, n_slots, tile=TILE):
@@ -193,10 +196,12 @@ def tile_plan(row_point, groups, n_slots, tile=TILE):
     an entry outside [0, L1) after that; the points' rows follow each other
     in point order from row 0 to L1, and row_point agrees.  Tiles take
     whole points greedily, in order, up to `tile` slots; a point of more
-    slots than that gets a tile to itself.  Integer work on the host (one
-    copy of the tables from the device).  Returns (pt_row0 (L + 1,),
-    tiles (n_tiles, 4): first row, end row, first point, end point), int32
-    on the tables' device; raises ValueError for any other form."""
+    slots than that gets a tile to itself.  The check runs as elementwise
+    ops on the tables' device; the host reads only each point's first row
+    (L + 1 ints) and the verdict, in one copy, and cuts the tiles from
+    them.  Returns (pt_row0 (L + 1,), tiles (n_tiles, 4): first row, end
+    row, first point, end point), int32 on the tables' device; raises
+    ValueError for any other form."""
     L1 = row_point.shape[0]
     if groups.dim() != 2 or L1 == 0 or n_slots % L1:
         raise ValueError(f"{n_slots} slots and {L1} rows do not form a point-major layout")
@@ -204,37 +209,44 @@ def tile_plan(row_point, groups, n_slots, tile=TILE):
     if R > 32 or R & (R - 1):
         raise ValueError(f"{R} slots a row: the kernel takes a power of two up to 32")
     L, M = groups.shape
-    g = groups.cpu().numpy().astype(np.int64)
-    rp = row_point.cpu().numpy().astype(np.int64)
+    dev = groups.device
+    rp = row_point.to(device=dev, dtype=torch.int64).contiguous()
+    # row_point runs 0, .., L - 1 in steps of 0 or 1: every point owns a
+    # run of rows, in point order; off[l] is its first row, off[L] = L1
+    off = torch.searchsorted(rp, torch.arange(L + 1, device=dev))
+    n = off[1:] - off[:-1]
+    step = rp[1:] - rp[:-1]
+    g = groups.long()
+    col = torch.arange(M, device=dev)
     inside = (g >= 0) & (g < L1)
-    n = inside.sum(1)
-    off = np.zeros(L + 1, np.int64)
-    np.cumsum(n, out=off[1:])
-    col = np.arange(M)
-    if not (np.array_equal(inside, col < n[:, None]) and bool((n >= 1).all())
-            and off[-1] == L1
-            and np.array_equal(np.where(inside, g, 0), np.where(inside, off[:-1, None] + col, 0))
-            and np.array_equal(rp, np.repeat(np.arange(L), n))):
+    ok = ((rp[0] == 0) & (rp[-1] == L - 1) & ((step == 0) | (step == 1)).all()
+          & (n <= M).all()
+          & ((inside == (col < n[:, None])) & (~inside | (g == off[:-1, None] + col))).all())
+    host = torch.cat([off, ok.long()[None]]).cpu().numpy()
+    if L == 0 or not host[-1]:
         raise ValueError("the group table is not the contiguous point-major form of "
                          "sfm/ba.py::build_pt_obs (each point's rows in a run of its own, "
                          "in point order, sentinels after them)")
-    ends = off[1:] * R
+    off_h = host[:-1]
+    ends = off_h[1:] * R
     tiles = []
     l = 0
     while l < L:
-        l2 = max(int(np.searchsorted(ends, off[l] * R + tile, side="right")), l + 1)
-        tiles.append((off[l], off[l2], l, l2))
+        l2 = max(int(np.searchsorted(ends, off_h[l] * R + tile, side="right")), l + 1)
+        tiles.append((off_h[l], off_h[l2], l, l2))
         l = l2
-    dev, i32 = groups.device, torch.int32
-    return (torch.as_tensor(off, dtype=i32).to(dev),
-            torch.as_tensor(np.asarray(tiles, np.int64).reshape(-1, 4), dtype=i32).to(dev))
+    return (off.to(torch.int32),
+            torch.as_tensor(np.asarray(tiles, np.int64).reshape(-1, 4),
+                            dtype=torch.int32).to(dev))
 
 
 def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plans=None):
     """The kernel's int32 tables, tile plan and K2 plans (seg_plans: the
     (pose, intrinsic) K2 plans a bundle adjustment problem already holds),
-    and on the card its scratch.  Raises ValueError when the tables are not
-    the contiguous point-major form (tile_plan)."""
+    and on the card its scratch.  Every check that does not depend on a
+    call's vectors and blocks is made here, once.  Raises ValueError when
+    the tables are not the contiguous point-major form (tile_plan) or do
+    not fit the kernel."""
     i32 = torch.int32
     O = pose_ids.shape[0]
     pt_row0, tiles = tile_plan(row_point, groups, O)
@@ -245,10 +257,19 @@ def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plan
                        plan_p=plan_p, plan_i=plan_i, pt_row0=pt_row0, tiles=tiles)
     if pose_ids.device.type != "cuda":
         return plan
+    dev, L = pose_ids.device, groups.shape[0]
+    if (intr_ids.shape != (O,) or pose_ids.dim() != 1
+            or any(t.device != dev for t in (intr_ids, row_point, groups))):
+        raise ValueError("the ids and tables must be (O,) ids and tables on one device")
+    if O >= 2 ** 31 // 16:
+        raise ValueError(f"{O} slots: slot offsets must fit int32")
+    if (plan_p.num != n_pose or plan_i.num != n_intr or plan_p.n_rows != O
+            or plan_i.n_rows != O or plan_p.perm.device != dev or plan_i.perm.device != dev):
+        raise ValueError("the K2 plans were built for other ids, counts or device")
     if n_pose and n_intr and plan_p.counters.data_ptr() == plan_i.counters.data_ptr():
         raise ValueError("the two halves need K2 plans of their own: one launch counts both "
                          "on their plans' arrival counters")
-    dev, f32 = pose_ids.device, torch.float32
+    f32 = torch.float32
     plan = plan._replace(
         e=torch.empty((O, 2), dtype=f32, device=dev),
         part_p=torch.empty((max(plan_p.chunk_start.shape[0], 1), 6), dtype=f32, device=dev),
@@ -260,18 +281,22 @@ def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plan
                     f"{h}_end": kp.chunk_end, f"{h}_seg": kp.chunk_seg,
                     f"{h}_off": kp.seg_chunk_off, f"{h}_empty": kp.empty,
                     f"{h}_counters": kp.counters})
-    ints = dict(O=O, R=O // plan.n_rows, L1=plan.n_rows, L=groups.shape[0],
+    ints = dict(O=O, R=O // plan.n_rows, L1=plan.n_rows, L=L,
                 n_tiles=tiles.shape[0], n_pose=n_pose, n_intr=n_intr,
                 p_n_chunks=plan_p.chunk_start.shape[0], p_n_empty=plan_p.empty.shape[0],
                 i_n_chunks=plan_i.chunk_start.shape[0], i_n_empty=plan_i.empty.shape[0])
     tables = _Tables(*[ptr[n].data_ptr() for n in _PTRS], *[ints[n] for n in _INTS])
-    return plan._replace(tables=tables)
+    # the element count of each float input a call hands the kernel
+    sizes = (O * 12, O * 16, O * 6, n_pose * 6, n_intr * 8, L * 9)
+    return plan._replace(tables=tables, sizes=sizes)
 
 
 def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, plan=None):
     """(sp (P, 6), si (I, 8)) of the contract above.  `plan` (smatvec_plan
-    of the same ids and tables) saves its construction on repeated calls;
-    after a call on the card, plan.e holds the call's e."""
+    of the same ids and tables) saves its construction on repeated calls,
+    and then the ids and tables are not read again; a call checks only
+    its float inputs against the plan.  After a call on the card, plan.e
+    holds the call's e."""
     global LAUNCHES
     O = jp.shape[0]
     L1 = row_point.shape[0]
@@ -282,31 +307,22 @@ def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, 
                              groups)
     if jp.device.type != "cuda":
         raise ValueError(f"unsupported device {jp.device}")
-    P, I, L = vp.shape[0], vi.shape[0], hpp_inv.shape[0]
-    f32 = (jp, ji, jx, vp, vi, hpp_inv)
-    if any(t.dtype != torch.float32 for t in f32):
-        raise TypeError("the kernel takes float32 Jacobians, vectors and point blocks")
-    if any(t.device != jp.device for t in f32 + (pose_ids, intr_ids, row_point, groups)):
-        raise ValueError("every input must be on one device")
-    shapes_ok = (jp.numel() == O * 12 and ji.numel() == O * 16 and jx.numel() == O * 6
-                 and pose_ids.shape == (O,) and intr_ids.shape == (O,)
-                 and vp.shape == (P, 6) and vi.shape == (I, 8) and hpp_inv.shape == (L, 3, 3)
-                 and groups.dim() == 2 and groups.shape[0] == L and L >= 1)
-    if not shapes_ok:
-        raise ValueError("shapes do not match the contract (see the module note)")
-    if O >= 2 ** 31 // 16:
-        raise ValueError(f"{O} slots: slot offsets must fit int32")
     if plan is None:
-        plan = smatvec_plan(pose_ids, intr_ids, row_point, groups, P, I)
-    pp, pi = plan.plan_p, plan.plan_i
-    if (pp.num != P or pi.num != I or pp.n_rows != O or pi.n_rows != O
-            or plan.n_rows != L1 or plan.pt_row0.shape != (L + 1,)
-            or plan.tables is None or plan.e.device != jp.device):
-        raise ValueError("the plan was built for other ids, tables, counts or device")
-    jp, ji, jx = jp.contiguous(), ji.contiguous(), jx.contiguous()
-    vp, vi, hpp_inv = vp.contiguous(), vi.contiguous(), hpp_inv.contiguous()
+        plan = smatvec_plan(pose_ids, intr_ids, row_point, groups, vp.shape[0], vi.shape[0])
+    if plan.tables is None or plan.e.device != jp.device:
+        raise ValueError("the plan was built for another device")
+    f32 = [jp, ji, jx, vp, vi, hpp_inv]
+    for k, (t, n) in enumerate(zip(f32, plan.sizes)):
+        if t.dtype != torch.float32:
+            raise TypeError("the kernel takes float32 Jacobians, vectors and point blocks")
+        if t.device != jp.device or t.numel() != n:
+            raise ValueError("the inputs do not match the plan's counts or device (see the "
+                             "module note)")
+        f32[k] = t.contiguous()
+    jp, ji, jx, vp, vi, hpp_inv = f32
     if jp.data_ptr() % 16 or ji.data_ptr() % 16 or jx.data_ptr() % 8:
         raise ValueError("jp and ji must start on a 16-byte boundary, jx on an 8-byte one")
+    P, I = plan.plan_p.num, plan.plan_i.num
     sp = torch.empty((P, 6), dtype=torch.float32, device=jp.device)
     si = torch.empty((I, 8), dtype=torch.float32, device=jp.device)
     if P + I == 0:

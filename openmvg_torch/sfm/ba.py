@@ -20,10 +20,13 @@ never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
                each point's observations are contiguous R-slot rows, so a
                point sum is a reshape-sum, the same order on every run
 
-With OMT_FUSED_SMATVEC=1, a float32 problem in the point-major layout with
+On the card, an unsharded float32 problem in the point-major layout with
 a group table runs each CG iteration's matvec through kernel K3
-(ops/smatvec.py) instead, as the reference's switch of the same name does;
-unset, the matvec is the unfused sequence of J-products and K2 sums.
+(ops/smatvec.py) instead, with K3's plan built once a problem beside K2's
+(with_plans); every other problem (the CPU, float64, the gather-form
+tables, no group table, a sharded solve) takes the unfused sequence of
+J-products and K2 sums.  The reference keeps its fused matvec off unless
+OMT_FUSED_SMATVEC=1; the port has no switch.
 
 Sharded solves (parallel/dist_ba.py) pass a process group: each rank
 holds its rows of the observation table, forms its J-products and sums
@@ -49,10 +52,10 @@ step holds ba.cost (both costs), ba.jacobians, ba.schur (the solve up to
 the CG loop), ba.cg (the loop, a host_read for each stopping test) and
 ba.backsub, all with device times on the card.  Every read of the device
 goes through host_read.  The counters: ba.cg_iterations (the
-iterations each CG loop ran) and ba.lm_accepted (the accepted steps).
+iterations each CG loop ran), ba.cg_k3 (those of them whose matvec ran
+in K3) and ba.lm_accepted (the accepted steps).
 """
 
-import os
 from typing import NamedTuple
 
 import numpy as np
@@ -70,7 +73,6 @@ from openmvg_torch.utils.logging import count, host_read, span
 # refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
 ADJUST_ALL = "ALL"
 ADJUST_NONE = "NONE"
-
 
 class PtObsTable(NamedTuple):
     """Point-side reduction tables (see build_pt_obs).
@@ -111,6 +113,8 @@ class BAProblem(NamedTuple):
     seg_plans: tuple = None
     # K2 plan for obs_point when pt_obs is None (with_plans)
     point_plan: object = None
+    # K3 plan (ops/smatvec.py) when k3_gate holds, built with seg_plans
+    k3_plan: object = None
 
 
 class BAConfig(NamedTuple):
@@ -284,17 +288,36 @@ def _seg_sum(vals, ids, num, plan=None):
     return k2.seg_sum(vals.reshape(O, -1), ids, num, plan).reshape((num,) + vals.shape[1:])
 
 
-def with_plans(p: BAProblem):
-    """The problem with K2 plans for its pose and intrinsic ids, and for its
-    point ids when it has no point tables (built once per problem on the
-    card; the plain CPU path needs none)."""
+def k3_gate(p: BAProblem, group=None):
+    """Whether the CG matvec of `p` runs through kernel K3: an unsharded
+    float32 problem on the card, in the point-major layout with a group
+    table (on the CPU, K3's plain version is no faster than the unfused
+    matvec)."""
+    t = p.pt_obs
+    if (group is not None or not p.X.is_cuda or p.X.dtype != torch.float32
+            or t is None or t.rows is not None or t.groups is None):
+        return False
+    L1 = t.row_point.shape[0]
+    return L1 > 0 and p.obs_pose.shape[0] % L1 == 0
+
+
+def with_plans(p: BAProblem, group=None):
+    """The problem with K2 plans for its pose and intrinsic ids, for its
+    point ids when it has no point tables, and K3's plan, reusing K2's,
+    when k3_gate holds: all built once per problem on the card, whenever
+    seg_plans is None, so a problem whose seg_plans were cleared gets them
+    all anew.  The plain CPU path needs none."""
     if p.obs_pose.device.type != "cuda" or p.seg_plans is not None:
         return p
+    seg_plans = (k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
+                 k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0]))
+    t = p.pt_obs
     return p._replace(
-        seg_plans=(k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
-                   k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0])),
-        point_plan=(k2.seg_sum_plan(p.obs_point, p.X.shape[0]) if p.pt_obs is None
-                    else None))
+        seg_plans=seg_plans,
+        point_plan=k2.seg_sum_plan(p.obs_point, p.X.shape[0]) if t is None else None,
+        k3_plan=(k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
+                                 p.rotvec.shape[0], p.intr_params.shape[0], seg_plans)
+                 if k3_gate(p, group) else None))
 
 
 def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
@@ -438,22 +461,6 @@ def _prior_blocks(p):
     return J * p.mask_pose[:, None, :], _prior_residual_one(pose6, p.prior_C, p.prior_w)
 
 
-def _fused_smatvec_plan(p: BAProblem, Jp6):
-    """K3's plan when the fused S-matvec applies (the reference's gate,
-    sfm/ba.py:704-716): OMT_FUSED_SMATVEC=1, float32 Jacobians, the
-    point-major layout with a group table; None otherwise, and the solve
-    takes the unfused matvec."""
-    t = p.pt_obs
-    if (os.environ.get("OMT_FUSED_SMATVEC") != "1" or Jp6.dtype != torch.float32
-            or t is None or t.rows is not None or t.groups is None):
-        return None
-    L1 = t.row_point.shape[0]
-    if L1 == 0 or Jp6.shape[0] % L1:
-        return None
-    return k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
-                           p.rotvec.shape[0], p.intr_params.shape[0], p.seg_plans)
-
-
 def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig, group=None,
                    shard_points=False):
     """One damped normal-equation solve.  Returns (d_pose (P, 6), d_intr
@@ -512,7 +519,8 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig, group=Non
         Mp_inv = linalg.inv(Mp)
         Mi_inv = linalg.inv(Mi)
 
-        fused = _fused_smatvec_plan(p, Jp6) if group is None else None
+        # K3's plan, which with_plans built where k3_gate holds
+        fused = p.k3_plan if group is None else None
 
         def S_matvec(vp, vi):
             """S v = (B + lam D) v - E Hpp^-1 E^T v, all implicit via J."""
@@ -561,6 +569,7 @@ def schur_cg_solve(p: BAProblem, r, Jp6, Ji8, Jx3, lam, cfg: BAConfig, group=Non
             pp = (zz[0] + beta * pp[0], zz[1] + beta * pp[1])
             rz = rz_new
         count("ba.cg_iterations", n_it)
+        count("ba.cg_k3", n_it if fused is not None else 0)
 
     with span("ba.backsub", device=on_card):
         d_pose = x[0] * p.mask_pose
@@ -602,7 +611,7 @@ def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
     with span("ba.lm_step", device=on_card):
         if cam_fast is None:
             cam_fast = cam_fast_ok(p)
-        p = with_plans(p)
+        p = with_plans(p, group)
         lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
         with span("ba.cost", device=on_card):
             cost0 = robust_cost(p, cfg, cam_fast, group)
@@ -630,7 +639,7 @@ def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False, group=None,
     with span("ba.adjust"):
         cam_fast = cam_fast_ok(p)
         with span("ba.plans"):
-            p = with_plans(p)
+            p = with_plans(p, group)
         lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
         cost = host_read(robust_cost(p, cfg, cam_fast, group))
         n_acc = 0

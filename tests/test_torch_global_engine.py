@@ -32,6 +32,7 @@ from openmvg_torch.sfm.eval_quality import evaluate_against_gt
 from openmvg_torch.sfm.scene import rmse
 from openmvg_torch.utils.synthetic import render_textured_sphere_dataset
 from tests.test_torch_incremental import _ate_aligned, ring_data
+from tests.test_torch_smatvec import k3_on_the_cpu
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,9 +66,9 @@ def test_global_sfm_on_ring_scene(rot, trans):
 
 
 def test_global_same_seed_same_scene(monkeypatch):
-    """Two runs on noisy features with the fused S-matvec switched on
-    write the same scene bit for bit."""
-    monkeypatch.setenv("OMT_FUSED_SMATVEC", "1")
+    """Two runs on noisy features with the fused S-matvec (K3's plan put
+    on each BA's problem) write the same scene bit for bit."""
+    k3_on_the_cpu(monkeypatch)
     s = ring_scene(n_views=8, n_points=100, seed=3)
     out = []
     for _ in range(2):

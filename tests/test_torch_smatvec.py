@@ -1,14 +1,17 @@
 """Port parity for kernel K3's plain version and the fused branch of the
 Schur-CG solve: openmvg_torch/ops/smatvec.py against
 openmvg_tpu/ops/pallas_smatvec.py::s_matvec_halves (Pallas in interpret
-mode on the CPU), and schur_cg_solve with OMT_FUSED_SMATVEC=1 against the
-same solve unfused.
+mode on the CPU), and schur_cg_solve's fused branch (K3's plain version on
+the CPU, with K3's plan put on the problem) against the same solve
+unfused.
 
 The matvec cases are the problem of tests/test_pallas_smatvec.py (seed 0,
 R = 4) and three more seeds and row widths, float32 on both sides, held to
 2e-4 as that test holds the reference.  The kernel itself runs only on
 the card (tests/test_torch_smatvec_cuda.py).
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,22 +106,52 @@ def _f32_problem():
 
 def _solve(p):
     cfg = tba.BAConfig()
+    p = tba.with_plans(p)
     fast = tba.cam_fast_ok(p)
     r, Jp6, Ji8, Jx3 = tba.jacobians(p, cfg, fast)
     lam = torch.tensor(1e-4, dtype=p.X.dtype)
     return tba.schur_cg_solve(p, r, Jp6, Ji8, Jx3, lam, cfg)
 
 
+def with_k3_plan(p):
+    """p with K3's plan, as with_plans builds it on the card, so that its
+    CG matvec runs through K3's plain version on the CPU."""
+    t = p.pt_obs
+    return p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
+                                              p.rotvec.shape[0], p.intr_params.shape[0]))
+
+
+def claims_the_card(p):
+    """p whose parameters claim to be float32 on the card, so that k3_gate
+    weighs everything else about it."""
+    return p._replace(X=types.SimpleNamespace(is_cuda=True, dtype=torch.float32))
+
+
+def k3_on_the_cpu(monkeypatch):
+    """Every ba.adjust whose problem the gate would take on the card gets
+    K3's plan first, so that the engines' BAs run through K3's plain
+    version on the CPU."""
+    orig = tba.adjust
+
+    def adjust(p, *a, **k):
+        if (p.k3_plan is None and p.X.dtype == torch.float32
+                and tba.k3_gate(claims_the_card(p), k.get("group"))):
+            p = with_k3_plan(p)
+        return orig(p, *a, **k)
+
+    monkeypatch.setattr(tba, "adjust", adjust)
+
+
 def test_fused_schur_cg_solve_matches_unfused(monkeypatch):
     """One damped solve of a 6-view float32 problem (poses, intrinsics and
-    points free), fused and unfused, both on the CPU.  The two matvecs sum
-    in other orders, so float32 rounding (about 1e-7 relative a step)
-    enters each CG iteration; the updates agree to 1e-4 of their largest
-    magnitude and the predicted gains to 1e-4 relative.  The fused branch
-    must have run once per CG iteration."""
+    points free), fused and unfused, both on the CPU, the branch chosen by
+    K3's plan on the problem (with_plans builds none on the CPU; the test
+    builds it).  The two matvecs sum in other orders, so float32 rounding
+    (about 1e-7 relative a step) enters each CG iteration; the updates
+    agree to 1e-4 of their largest magnitude and the predicted gains to
+    1e-4 relative.  The fused branch must have run once per CG
+    iteration."""
     p = _f32_problem()
-    monkeypatch.delenv("OMT_FUSED_SMATVEC", raising=False)
-    ref = _solve(p)
     calls = []
     orig = k3.smatvec
 
@@ -127,8 +160,9 @@ def test_fused_schur_cg_solve_matches_unfused(monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(k3, "smatvec", counted)
-    monkeypatch.setenv("OMT_FUSED_SMATVEC", "1")
-    got = _solve(p)
+    ref = _solve(p)
+    assert not calls
+    got = _solve(with_k3_plan(p))
     assert calls
     for a, b in zip(got[:3], ref[:3]):
         scale = float(b.abs().max())
@@ -136,18 +170,51 @@ def test_fused_schur_cg_solve_matches_unfused(monkeypatch):
     assert abs(float(got[3]) - float(ref[3])) <= 1e-4 * abs(float(ref[3]))
 
 
-def test_fused_gate_declines_what_the_reference_declines(monkeypatch):
-    """The gate: the variable set, float32, the point-major layout and a
-    group table; anything else takes the unfused matvec."""
+def test_fused_gate_declines_what_the_reference_declines():
+    """The gate: an unsharded float32 problem on the card, in the
+    point-major layout with a group table; anything else takes the
+    unfused matvec, and with_plans builds no K3 plan for it."""
     p = _f32_problem()
-    Jp6 = torch.zeros((p.obs_pose.shape[0], 2, 6))
-    monkeypatch.delenv("OMT_FUSED_SMATVEC", raising=False)
-    assert tba._fused_smatvec_plan(p, Jp6) is None
-    monkeypatch.setenv("OMT_FUSED_SMATVEC", "1")
-    assert tba._fused_smatvec_plan(p, Jp6) is not None
-    assert tba._fused_smatvec_plan(p, Jp6.double()) is None               # float64
+    assert not tba.k3_gate(p)                                            # the CPU
+    assert tba.with_plans(p).k3_plan is None
+    c = claims_the_card(p)
+    assert tba.k3_gate(c)
+    f64 = types.SimpleNamespace(is_cuda=True, dtype=torch.float64)
+    assert not tba.k3_gate(c._replace(X=f64))                            # float64
     t = p.pt_obs
     rows = torch.arange(p.obs_pose.shape[0]).reshape(t.row_point.shape[0], -1)
-    assert tba._fused_smatvec_plan(p._replace(pt_obs=t._replace(rows=rows)), Jp6) is None
-    assert tba._fused_smatvec_plan(p._replace(pt_obs=t._replace(groups=None)), Jp6) is None
-    assert tba._fused_smatvec_plan(p._replace(pt_obs=None), Jp6) is None
+    assert not tba.k3_gate(c._replace(pt_obs=t._replace(rows=rows)))     # gather form
+    assert not tba.k3_gate(c._replace(pt_obs=t._replace(groups=None)))   # no group table
+    assert not tba.k3_gate(c._replace(pt_obs=None))
+    assert not tba.k3_gate(c, group=object())                            # sharded
+
+
+def test_adjust_builds_no_k3_plan_inside_the_lm_loop(monkeypatch):
+    """adjust takes K3's plan from the problem: no LM step builds one, and
+    every CG iteration of every step goes through K3 with it (on the card
+    with_plans builds it once a problem, in ba.plans:
+    tests/test_torch_smatvec_cuda.py)."""
+    p = with_k3_plan(_f32_problem())
+    plans, steps, calls = [], [], []
+    orig_plan, orig_step, orig_mv = k3.smatvec_plan, tba.lm_step, k3.smatvec
+
+    def plan(*a, **k):
+        plans.append(1)
+        return orig_plan(*a, **k)
+
+    def step(*a, **k):
+        steps.append(1)
+        return orig_step(*a, **k)
+
+    def mv(*a, **k):
+        assert (k["plan"] if "plan" in k else a[-1]) is p.k3_plan
+        calls.append(1)
+        return orig_mv(*a, **k)
+
+    monkeypatch.setattr(k3, "smatvec_plan", plan)
+    monkeypatch.setattr(tba, "lm_step", step)
+    monkeypatch.setattr(k3, "smatvec", mv)
+    _, cost, _ = tba.adjust(p, tba.BAConfig(max_iterations=4, function_tolerance=0.0))
+    assert len(steps) >= 3 and len(calls) >= len(steps)
+    assert not plans
+    assert np.isfinite(cost)

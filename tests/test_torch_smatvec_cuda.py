@@ -114,3 +114,78 @@ def test_wrapper_raises_on_unsupported(dev):
     cpu_plan = k3.smatvec_plan(*[a.cpu() for a in (args[3], args[4], args[8], args[9])], 4, 1)
     with pytest.raises(ValueError, match="plan"):
         k3.smatvec(*args, plan=cpu_plan)
+
+
+def test_kernel_at_the_bal_cell_s_shape_class(dev):
+    """K3 at the shape class of the BAL Dubrovnik cell: R = 4, 356 poses
+    and 356 intrinsics (each observation's intrinsic its camera's) whose
+    Jacobians hold only the f, k1 and k2 columns, points of 1 to 36 rows
+    (up to 144 observations), slack slots with zero Jacobians as obs_w = 0
+    leaves them.  Within 1e-5 (1 + S) of the plain version in float64, and
+    two calls bitwise equal."""
+    c = list(k3_case(356, 356, 4, 12000, 144, None, seed=356))
+    cols = np.zeros(8, np.float32)
+    cols[[0, 3, 4]] = 1.0
+    c[1] = c[1] * cols                     # f, k1, k2 of PINHOLE_CAMERA_RADIAL3
+    c[4] = c[3].copy()                     # one intrinsic a camera
+    args = [torch.as_tensor(a, device=dev) for a in c]
+    assert c[9].shape[1] == 36             # the widest point's rows
+    plan = k3.smatvec_plan(args[3], args[4], args[8], args[9], 356, 356)
+    got = k3.smatvec(*args, plan=plan)
+    again = k3.smatvec(*args, plan=plan)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    d = [a.double().cpu() if a.is_floating_point() else a.cpu() for a in args]
+    ref = k3.smatvec_plain(*d)
+    mag = k3.smatvec_magnitudes(*d)
+    for g, r, s in zip(got, ref, mag):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g.double().cpu() - r).abs() <= 1e-5 * (1 + s)).all())
+
+
+def test_adjust_runs_every_cg_iteration_through_k3(dev, monkeypatch):
+    """One float32 adjust of a reduced BAL-like problem (the benchmark's
+    generator and layout: camera model 3, f, k1, k2 free) on the card,
+    with no switch set: K3's plan built once, in ba.plans, two K3 launches
+    a CG iteration, ba.cg_k3 equal to ba.cg_iterations, and the final cost
+    within 1e-4 relative of the same solve with the gate patched to
+    decline the card (the unfused matvec).  with_plans builds no K3 plan
+    for the same problem sharded or in float64."""
+    from benchmark.drivers import ba_solve
+    from benchmark.gen import bal
+    from openmvg_torch.models import cameras as cm
+    from openmvg_torch.sfm import ba
+    from openmvg_torch.utils import logging as omt
+
+    prob = bal.make_problem(None, 36, 6000, 40000, problem_seed=7)
+    p = ba_solve.program_problem(prob, dict(camera_model=cm.PINHOLE_RADIAL_K3,
+                                            image_wh=[2000, 2000], dtype="float32"), dev)
+    cfg = ba.BAConfig(max_iterations=8)
+    assert ba.with_plans(p).k3_plan is not None
+    assert ba.with_plans(p, group=object()).k3_plan is None
+    assert ba.with_plans(p._replace(X=p.X.double())).k3_plan is None
+    plans = []
+    orig_plan = k3.smatvec_plan
+
+    def plan(*a, **k):
+        plans.append(1)
+        return orig_plan(*a, **k)
+
+    monkeypatch.setattr(k3, "smatvec_plan", plan)
+    omt.clear_records()
+    k3.LAUNCHES = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, cost, _ = ba.adjust(p, cfg)
+    torch.cuda.synchronize()
+    counters = omt.records()["counters"]
+    omt.clear_records()
+    its = counters["ba.cg_iterations"]
+    assert its > 0 and counters["ba.cg_k3"] == its
+    assert k3.LAUNCHES == 2 * its
+    assert len(plans) == 1
+    monkeypatch.setattr(ba, "k3_gate", lambda p, group=None: False)
+    k3.LAUNCHES = 0
+    _, cost_off, _ = ba.adjust(p, cfg)
+    assert k3.LAUNCHES == 0
+    assert abs(cost - cost_off) <= 1e-4 * abs(cost_off)

@@ -120,6 +120,62 @@ def test_tile_plan_refuses_other_layouts(case):
                         rp, g, 4, 1)
 
 
+def _host_tile_plan(row_point, groups, n_slots, tile=k3.TILE):
+    """The tile plan as the host once made it, from a copy of the whole
+    group table checked in numpy: the yardstick of tile_plan, which
+    checks on the device and reads back only the points' first rows.
+    Returns (pt_row0, tiles) as int64 arrays, or None for a table of
+    another form."""
+    L1 = row_point.shape[0]
+    if groups.dim() != 2 or L1 == 0 or n_slots % L1:
+        return None
+    R = n_slots // L1
+    if R > 32 or R & (R - 1):
+        return None
+    L, M = groups.shape
+    g = groups.cpu().numpy().astype(np.int64)
+    rp = row_point.cpu().numpy().astype(np.int64)
+    inside = (g >= 0) & (g < L1)
+    n = inside.sum(1)
+    off = np.zeros(L + 1, np.int64)
+    np.cumsum(n, out=off[1:])
+    col = np.arange(M)
+    if not (np.array_equal(inside, col < n[:, None]) and bool((n >= 1).all())
+            and off[-1] == L1
+            and np.array_equal(np.where(inside, g, 0), np.where(inside, off[:-1, None] + col, 0))
+            and np.array_equal(rp, np.repeat(np.arange(L), n))):
+        return None
+    ends = off[1:] * R
+    tiles = []
+    l = 0
+    while l < L:
+        l2 = max(int(np.searchsorted(ends, off[l] * R + tile, side="right")), l + 1)
+        tiles.append((off[l], off[l2], l, l2))
+        l = l2
+    return off, np.asarray(tiles, np.int64).reshape(-1, 4)
+
+
+@pytest.mark.parametrize("tile", [k3.TILE, 64])
+@pytest.mark.parametrize("name,P,I,R,L,max_obs,kind", LAYOUTS, ids=IDS)
+def test_tile_plan_equals_the_host_plan(name, P, I, R, L, max_obs, kind, tile):
+    """The device-checked plan gives the host plan's first rows and tiles,
+    points wider than a tile among them, and both refuse every malformed
+    table."""
+    args = _layout(P, I, R, L, max_obs, kind, seed=R)
+    rp, g, O = args[8], args[9], args[0].shape[0]
+    pt_row0, tiles = k3.tile_plan(rp, g, O, tile)
+    ref = _host_tile_plan(rp, g, O, tile)
+    assert ref is not None
+    assert np.array_equal(pt_row0.numpy(), ref[0])
+    assert np.array_equal(tiles.numpy(), ref[1])
+    if kind is not None:
+        assert int(np.diff(ref[0]).max()) * R > tile           # a point wider than a tile
+    for _, brp, bg, bO in _broken_tables():
+        assert _host_tile_plan(brp, bg, bO, tile) is None
+        with pytest.raises(ValueError):
+            k3.tile_plan(brp, bg, bO, tile)
+
+
 def _f64(args):
     return [a.double() if a.is_floating_point() else a for a in args]
 

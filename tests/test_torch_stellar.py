@@ -26,6 +26,7 @@ from openmvg_torch.sfm.pipeline_incremental import _TrackIndex
 from openmvg_torch.sfm.scene import rmse
 from openmvg_torch.sfm.tracks import build_tracks
 from tests.test_torch_incremental import _ate_aligned, ring_data
+from tests.test_torch_smatvec import k3_on_the_cpu
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,11 +163,11 @@ def test_stellar_sfm_noisy():
 
 
 def test_stellar_fused_smatvec_same_result(monkeypatch):
-    """With OMT_FUSED_SMATVEC=1 every BA's CG matvec goes through K3 (its
-    plain version on the CPU): poses and points within 1e-6 of the run
-    without it."""
+    """With K3's plan put on each BA's problem, every BA's CG matvec goes
+    through K3 (its plain version on the CPU): poses and points within
+    1e-6 of the run without it."""
     _, a, _ = _run(2, noise_px=0.4, data_seed=5, n_points=150)
-    monkeypatch.setenv("OMT_FUSED_SMATVEC", "1")
+    k3_on_the_cpu(monkeypatch)
     _, b, _ = _run(2, noise_px=0.4, data_seed=5, n_points=150)
     np.testing.assert_array_equal(a.pose_valid, b.pose_valid)
     np.testing.assert_array_equal(a.X_valid, b.X_valid)

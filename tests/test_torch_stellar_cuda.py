@@ -1,5 +1,5 @@
-"""The STELLAR engine on the card with the fused S-matvec on
-(OMT_FUSED_SMATVEC=1): on the 8-view ring it launches K2 and K3, poses
+"""The STELLAR engine on the card, where its float32 BAs take the fused
+S-matvec (K3) by default: on the 8-view ring it launches K2 and K3, poses
 every view, and its camera centres agree with the same run on the CPU
 (where both kernels take their plain versions) within 1e-4 after 7-DoF
 alignment, on a ring of radius 2.  The alignment takes out the gauge
@@ -72,8 +72,7 @@ def ring_data(n_views=8, n_points=150, noise_px=0.4, seed=2):
     return sc, feats, matches, C
 
 
-def test_stellar_on_the_card_launches_k2_and_k3(dev, monkeypatch):
-    monkeypatch.setenv("OMT_FUSED_SMATVEC", "1")
+def test_stellar_on_the_card_launches_k2_and_k3(dev):
     cfg = StellarConfig(ransac_samples=512, ba_iterations=15)
     scenes = {}
     for device in ("cpu", dev):

@@ -21,6 +21,7 @@ from benchmark.drivers import ba_solve
 from benchmark.gen import bal
 from benchmark.trace import DeviceTrace
 from openmvg_torch.models import cameras as cm
+from openmvg_torch.ops import smatvec as k3
 from openmvg_torch.sfm import ba
 from openmvg_torch.utils import logging as omt
 from openmvg_torch.utils.logging import Span
@@ -139,6 +140,32 @@ def test_host_read_spans_equal_an_independent_count_of_the_reads(kind, monkeypat
     assert harness.reader("host_reads.ba")({}) == reads[0]
 
 
+@pytest.mark.parametrize("with_plan", [False, True])
+def test_k3_counter_counts_the_iterations_k3_ran(with_plan, monkeypatch):
+    """ba.cg_k3 counts the CG iterations whose matvec ran in K3: all of
+    them where the problem carries K3's plan (put on it here, on the CPU,
+    where K3 is its plain version), none where it does not; k3_share.ba
+    reads 100 or 0, and nothing from a program that does not count it."""
+    prob = bal.make_problem(None, 12, 240, 1300, problem_seed=3)
+    p = ba_solve.program_problem(prob, dict(camera_model=cm.PINHOLE_RADIAL_K3,
+                                            image_wh=[2000, 2000], dtype="float32"), "cpu")
+    if with_plan:
+        t = p.pt_obs
+        p = p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
+                                               p.rotvec.shape[0], p.intr_params.shape[0]))
+    with _cpu_session():
+        ba.adjust(p, ba.BAConfig(max_iterations=3))
+    c = omt.records()["counters"]
+    assert c["ba.cg_iterations"] > 0
+    assert c["ba.cg_k3"] == (c["ba.cg_iterations"] if with_plan else 0)
+    read = harness.reader("k3_share.ba")
+    assert read({}) == (100.0 if with_plan else 0.0)
+    older = {"spans": omt.records()["spans"],
+             "counters": {k: v for k, v in c.items() if k != "ba.cg_k3"}}
+    monkeypatch.setattr(omt, "records", lambda: older)
+    assert read({}) is None
+
+
 def test_accepted_counter_equals_the_solve_s_count():
     with _cpu_session():
         _, _, n_acc = ba.adjust(_problem(), ba.BAConfig(max_iterations=6))
@@ -223,7 +250,8 @@ def _hand_built():
     c = add("ba.cg", 150, 199, s3, 0.048)
     add("host_read", 151, 152, c)
     add("host_read", 200, 201, b)
-    return {"spans": S, "counters": {"ba.cg_iterations": 17, "ba.lm_accepted": 2}}
+    return {"spans": S, "counters": {"ba.cg_iterations": 17, "ba.cg_k3": 12,
+                                     "ba.lm_accepted": 2}}
 
 
 def _trace(busy_ms):
@@ -251,6 +279,7 @@ BUSY = [(1, 1.5), (3, 10), (12, 21.2), (23, 30), (31, 97.5), (112, 160), (161, 2
     ("cg_s.ba", (0.017 + 0.035 + 0.048) / 2),
     ("idle_read.ba", 100.0 * (1.5 + 1.8 + 14.5 + 19.5) / 220),
     ("idle_issue.ba", 100.0 * (2 + 1 + 1) / 220),
+    ("k3_share.ba", 100.0 * 12 / 17),
 ])
 def test_each_reader_on_hand_built_spans(name, value, monkeypatch):
     monkeypatch.setattr(omt, "records", _hand_built)
@@ -269,8 +298,37 @@ def test_idle_shares_and_the_idle_outside_the_solves_sum_to_device_idle(monkeypa
     assert sum(parts) == pytest.approx(harness.reader("device_idle.ba")(ctx), rel=1e-12)
 
 
+def test_k3_roofline_reads_the_bound_of_each_counted_call_over_k3_s_device_time(monkeypatch):
+    """k3_roofline.ba: bounds.smatvec_bound_ms at the problem's layout, once
+    a call counted in ba.cg_k3 (12), over the summed device time of K3's
+    two launches (other kernels left out)."""
+    from types import SimpleNamespace
+
+    from benchmark import bounds
+
+    monkeypatch.setattr(omt, "records", _hand_built)
+    prob = bal.make_problem(None, 12, 240, 1300, problem_seed=3)
+    p = ba_solve.program_problem(prob, dict(camera_model=cm.PINHOLE_RADIAL_K3,
+                                            image_wh=[2000, 2000], dtype="float32"), "cpu")
+    tr = _trace(BUSY)
+    tr.events = [("smatvec_tiles(TileArgs)", 0, 3 * MS), ("camera_sums_kernel", 3 * MS, 9 * MS),
+                 ("void smatvec_camera_sums(float const*)", 10 * MS, 15 * MS)]
+    t = p.pt_obs
+    bound_ms = bounds.smatvec_bound_ms(p.obs_pose.shape[0], t.row_point.shape[0],
+                                       *t.groups.shape, 12, p.intr_params.shape[0])
+    read, ctx = harness.reader("k3_roofline.ba"), {"trace": tr, "state": SimpleNamespace(p0=p)}
+    assert read(ctx) == pytest.approx(100.0 * 12 * bound_ms / 8.0, rel=1e-12)
+    older = {"spans": _hand_built()["spans"], "counters": {"ba.cg_iterations": 17}}
+    monkeypatch.setattr(omt, "records", lambda: older)
+    assert read(ctx) is None                           # a program without ba.cg_k3
+    monkeypatch.setattr(omt, "records", _hand_built)
+    tr.events = tr.events[1:2]
+    assert read(ctx) is None                           # K3 did not launch
+
+
 @pytest.mark.parametrize("name", ["cg_iters.ba", "host_reads.ba", "lm_accept.ba", "jac_s.ba",
-                                  "cg_s.ba", "idle_read.ba", "idle_issue.ba"])
+                                  "cg_s.ba", "idle_read.ba", "idle_issue.ba",
+                                  "k3_share.ba", "k3_roofline.ba"])
 def test_each_reader_gives_none_where_nothing_was_recorded(name, monkeypatch):
     read = harness.reader(name)
     assert read({"trace": _trace(BUSY)}) is None      # no records

@@ -5,8 +5,8 @@ final GLOBAL bundle adjustment of the main path, on one NVIDIA card.
     python3 tools/bench_smatvec.py --make-scene DIR [--views 100 --size 1024]
         renders the textured-sphere dataset on the card and runs the port's
         init -> features (HIGH) -> pairs (CONTIGUOUS 6) -> matches (0.8) ->
-        filter -g e -> sfm -s GLOBAL with OMT_FUSED_SMATVEC=1, the stages
-        and flags of chip_smoke.py's global phase; keeps the reconstruction
+        filter -g e -> sfm -s GLOBAL, the stages and flags of
+        chip_smoke.py's global phase; keeps the reconstruction
         as DIR/sfm_data.json.gz and measures K3 on it
     python3 tools/bench_smatvec.py --scene DIR/sfm_data.json.gz [--tree T ...]
         measures K3 on that reconstruction's final bundle adjustment, once
@@ -156,14 +156,12 @@ def make_scene(out_dir, n_views, size):
             ["sfm", "-i", sfm, "-m", md, "-M", os.path.join(md, "matches.e.bin"),
              "-o", recon, "-s", "GLOBAL"],
         ]
-        os.environ["OMT_FUSED_SMATVEC"] = "1"
         for argv in stages:
             t = time.perf_counter()
             if cli.main(argv) != 0:
                 print(f"stage {argv[0]} failed", flush=True)
                 sys.exit(1)
             print(f"[scene] {argv[0]} {time.perf_counter() - t:.2f} s", flush=True)
-        del os.environ["OMT_FUSED_SMATVEC"]
         torch.cuda.empty_cache()
         dst = os.path.join(out_dir, "sfm_data.json.gz")
         with open(os.path.join(recon, "sfm_data.json"), "rb") as fi, \
