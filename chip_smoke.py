@@ -39,7 +39,10 @@ last line is printed):
             1e-5 (1 + S) of the plain version in float64, S the output's
             sum of magnitudes (smatvec_magnitudes), the e buffer of its
             first launch likewise against smatvec_e_plain, two launches a
-            call, and two calls bitwise equal.  Then the reference's CPU
+            call, and two calls bitwise equal; the same, with K2's point
+            sums through a plan of row_point, on a layout without a group
+            table at BAL Final's scale (about 35.7 M slots, Ji8 past 2^31
+            bytes; phase_k3_no_table_final).  Then the reference's CPU
             2-NN baseline (openmvg_torch.native.bench_match_2nn) on K1's
             headline 16 pairs with 1,024 A rows a pair planted near a B
             row (native_match_check): its index equal to K1's on every row
@@ -997,7 +1000,7 @@ def smatvec_check(smatvec, got, args):
     plain version on the same inputs in float64 and S the sum of
     magnitudes behind each output (smatvec_magnitudes).  Returns the
     largest |got - ref|, or None when outside."""
-    d = [a.double() if a.is_floating_point() else a for a in args]
+    d = [a.double() if a is not None and a.is_floating_point() else a for a in args]
     ref = smatvec.smatvec_plain(*d)
     mag = smatvec.smatvec_magnitudes(*d)
     worst = 0.0
@@ -1026,7 +1029,7 @@ def phase_kernel_k3(smatvec, dev):
     worst = 0.0
     for name, P, I, R, L, max_obs, kind in cases:
         args = [a.to(dev) for a in k3_case(g, P, I, R, L, max_obs, kind)]
-        plan = smatvec.smatvec_plan(args[3], args[4], args[8], args[9], P, I)
+        plan = smatvec.smatvec_plan(args[3], args[4], args[8], L, P, I)
         n0 = smatvec.LAUNCHES
         got = smatvec.smatvec(*args, plan=plan)
         if smatvec.LAUNCHES - n0 != 2:
@@ -1052,6 +1055,114 @@ def phase_kernel_k3(smatvec, dev):
     log(f"[kernel] smatvec float32: {len(cases)} cases within 1e-5 (1 + S), e buffer too, "
         f"max |err| {worst:.3g}; two launches a call, two calls bitwise equal in every case")
     return worst
+
+
+def k3_no_table_case(dev, seed, P, I, L, max_obs, R):
+    """k3_case's point-major layout made on the card, with no group table
+    (groups None, as sfm/ba.py::build_pt_obs leaves a problem whose table
+    would pass its budget): point l has 1..max_obs observations in
+    ceil(n / R) rows of R slots, slack slots zero with pose and intrinsic
+    0, pose P // 2 without observations."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = torch.randint(1, max_obs + 1, (L,), generator=g, device=dev)
+    nrow = (n + R - 1) // R
+    start = torch.cumsum(nrow, 0) - nrow
+    row_point = torch.repeat_interleave(torch.arange(L, device=dev), nrow)
+    O = row_point.shape[0] * R
+    row = torch.arange(O, device=dev) // R
+    pt = row_point[row]
+    used = (row - start[pt]) * R + torch.arange(O, device=dev) % R < n[pt]
+    del row, pt
+    pose = torch.randint(0, P, (O,), generator=g, device=dev)
+    pose[pose == P // 2] = (P // 2 + 1) % P
+    pose[~used] = 0
+    intr = torch.where(used, torch.randint(0, I, (O,), generator=g, device=dev), 0)
+    w = used.float()[:, None, None]
+    A = torch.randn((L, 3, 3), generator=g, device=dev, dtype=torch.float64)
+    hinv = torch.linalg.inv(A @ A.transpose(-1, -2) + 3 * torch.eye(3, dtype=A.dtype, device=dev))
+    i32 = torch.int32
+    return [torch.randn((O, 2, k), generator=g, device=dev).mul_(w) for k in (6, 8, 3)] + [
+        pose.to(i32), intr.to(i32), torch.randn((P, 6), generator=g, device=dev),
+        torch.randn((I, 8), generator=g, device=dev), hinv.float(), row_point.to(i32), None]
+
+
+def phase_k3_no_table_final(smatvec, seg_sum, dev):
+    """K3 planned from row_point alone, and K2's point sums through a plan
+    of row_point (what sfm/ba.py runs without a group table), at BAL
+    Final's scale: 13,682 cameras with their own intrinsics, 4,456,117
+    points of 1..12 observations in rows of 4 slots, about 35.7 M slots,
+    so that Ji8 passes 2^31 bytes.  Each against its plain version in
+    float64 on the same inputs within 1e-5 (1 + S) (smatvec_check,
+    seg_sum_check; K3's e buffer too), two launches a K3 call and one a
+    K2 call, two K3 calls bitwise equal."""
+    import torch
+
+    P = I = 13682
+    L, R = 4456117, 4
+    log("[kernel] smatvec without a group table at BAL Final's scale")
+    args = k3_no_table_case(dev, 17, P, I, L, 12, R)
+    O, L1 = args[0].shape[0], args[8].shape[0]
+    ji8_bytes = args[1].numel() * args[1].element_size()
+    if ji8_bytes <= 2 ** 31:
+        fail(f"smatvec at Final's scale: Ji8 holds {ji8_bytes} B, not past 2^31")
+    t0 = time.perf_counter()
+    plan = smatvec.smatvec_plan(args[3], args[4], args[8], L, P, I)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    n0 = smatvec.LAUNCHES
+    got = smatvec.smatvec(*args, plan=plan)
+    launches = smatvec.LAUNCHES - n0
+    if launches != 2:
+        fail(f"smatvec at Final's scale: {launches} launches, not two")
+    e = plan.e.clone()
+    again = smatvec.smatvec(*args, plan=plan)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("smatvec at Final's scale: two launches differ")
+    del again
+    ms = cuda_ms(lambda: smatvec.smatvec(*args, plan=plan), 10)
+    bound, by = smatvec_bound_ms(O, L1, L, 0, P, I)
+    d = [a.double() if a is not None and a.is_floating_point() else a for a in args]
+    e_err = (e.double() - smatvec.smatvec_e_plain(*d)).abs()
+    if not bool((e_err <= 1e-5 * (1 + smatvec.smatvec_e_magnitudes(*d))).all()):
+        fail("smatvec at Final's scale: the e buffer is outside 1e-5 (1 + S)")
+    e_err = e_err.max().item()
+    del d, e
+    if P > 1 and not bool((got[0][P // 2] == 0).all()):
+        fail("smatvec at Final's scale: the pose without observations got a value")
+    err = smatvec_check(smatvec, got, args)
+    if err is None:
+        fail("smatvec at Final's scale: outside 1e-5 (1 + S)")
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    point_plan = seg_sum.seg_sum_plan(args[8], L)
+    k2 = {}
+    for k in (3, 9):
+        vals = torch.randn((L1, k), generator=g, device=dev)
+        n0 = seg_sum.LAUNCHES
+        sums = seg_sum.seg_sum(vals, args[8], L, point_plan)
+        if seg_sum.LAUNCHES - n0 != 1:
+            fail(f"seg_sum k{k} over Final's rows: {seg_sum.LAUNCHES - n0} launches, not one")
+        k2_err = seg_sum_check(seg_sum, sums, vals, args[8], L, 1e-5)
+        if k2_err is None:
+            fail(f"seg_sum k{k} over Final's rows: outside 1e-5 (1 + S)")
+        k2[f"k{k}"] = k2_err
+    out = dict(O=O, R=R, L1=L1, L=L, P=P, I=I, ji8_bytes=ji8_bytes, tiles=plan.tiles.shape[0],
+               plan_s=plan_s, launches_per_call=launches, max_abs_err=err, e_max_abs_err=e_err,
+               ms=ms, bound_ms=bound, bound_by=by,
+               point_sums_max_abs_err=k2, point_sums_launches_per_call=1)
+    log(f"[kernel] smatvec without a group table (O {O}, R {R}, L1 {L1}, L {L}, P {P}, I {I}, "
+        f"{out['tiles']} tiles, Ji8 {ji8_bytes} B): plan {plan_s:.2f} s; within 1e-5 (1 + S), "
+        f"max |err| {err:.3g}, e buffer {e_err:.3g}; two launches a call, two calls bitwise "
+        f"equal; kernel {ms:.4f} ms by events, "
+        f"bound {bound:.4f} ms ({by}), {bound / ms * 100:.2f}% of the bound; K2 point sums "
+        f"through a plan of row_point, one launch a call, within 1e-5 (1 + S), max |err| "
+        f"k3 {k2['k3']:.3g}, k9 {k2['k9']:.3g}")
+    del args, plan, got, point_plan
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_stages(kernel_mods, stages):
@@ -3669,7 +3780,7 @@ def k3_final_inputs(smatvec, prob):
     vi = torch.randn((I, 8), generator=g, device="cuda")
     t = p.pt_obs
     args = [Jp6, Ji8, Jx3, p.obs_pose, p.obs_intr, vp, vi, Hinv, t.row_point, t.groups]
-    plan = smatvec.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups, P, I,
+    plan = smatvec.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, p.X.shape[0], P, I,
                                 p.seg_plans)
     return p, r, lam, cfg, args, plan
 
@@ -3763,6 +3874,7 @@ def main():
     kres = phase_kernel(two_nn, dev)
     k2_errs = phase_kernel_k2(seg_sum, dev)
     k3_err = phase_kernel_k3(smatvec, dev)
+    k3_final = phase_k3_no_table_final(smatvec, seg_sum, dev)
     nmatch = native_match_check(two_nn, kres.pop("headline"), kres["headline_ms"])
     if args.views != 100 or args.size != 1024:
         log(f"[pipeline] CUT: {args.views} views of {args.size}^2 "
@@ -3873,6 +3985,7 @@ def main():
         "fused_vs_unfused_rel": m3["fused_vs_unfused_rel"],
         "shape": {k: m3[k] for k in ("O", "R", "L", "M", "P", "I")},
         "cg_iterations_one_solve": {"unfused": m3["cg_unfused"], "fused": m3["cg_fused"]},
+        "no_table_final_scale": k3_final,
         **new_paths("smatvec"),
         "launches_spherical_incremental": sprun["INCREMENTAL"]["launches"]["smatvec"],
         "launches_spherical_global": sprun["GLOBAL"]["launches"]["smatvec"],

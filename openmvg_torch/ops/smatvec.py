@@ -15,9 +15,11 @@ owning slots [r R, (r + 1) R), all of point row_point[r]),
     (sp (P, 6), si (I, 8)) = Jc^T e,   e = u - Jx Hpp^-1 Jx^T u,   u = Jc v,
 
 v = (vp (P, 6), vi (I, 8)), Jc = [Jp | Ji] per slot; the caller adds the
-O(P) terms lam D v and Hprior v.  The rows are folded into points through
-the group table groups (L, M), whose entries outside [0, L1) add nothing.
-Ids outside [0, P) or [0, I) contribute nothing.
+O(P) terms lam D v and Hprior v.  The rows are folded into their points
+(row_point); the plain versions fold them through a group table groups
+(L, M), whose entries outside [0, L1) add nothing, or through row_point
+where groups is None.  The kernel reads no group table.  Ids outside
+[0, P) or [0, I) contribute nothing.
 
 Two input forms.  The reference packs every slot into one (O, 36) float32
 row [Jp 12 | Ji 16 | Jx 6 | pose id | intrinsic id] (pack_slots) so that
@@ -31,8 +33,8 @@ tiles of whole points that writes e (O, 2), then kernel K2's camera sums of
 J^T e.  smatvec_plan, built once per problem (sfm/ba.py::with_plans,
 beside K2's plans), holds what does not change between the CG iterations
 and the LM steps: the int32 ids, the tile plan (tile_plan, which also
-checks on the device that the group table is the contiguous point-major
-form that sfm/ba.py::build_pt_obs makes, and raises ValueError otherwise),
+checks on the device that row_point is the contiguous point-major form
+that sfm/ba.py::build_pt_obs makes, and raises ValueError otherwise),
 kernel K2's plans of the pose and intrinsic ids, and on the card the e
 buffer, K2's chunk partials and the checks of the ids and tables, so that
 a call checks only its float inputs and allocates only its two outputs.
@@ -115,9 +117,13 @@ def _e(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, sign)
     vio = torch.where(intr_ok[:, None], vi[intr_ids.clamp(0, max(I - 1, 0))], 0.0)
     u = (jp * vpo[:, None]).sum(-1) + (ji * vio[:, None]).sum(-1)             # (O, 2)
     rows = (jx * u[:, :, None]).sum(1).reshape(L1, R, 3).sum(1)                # (L1, 3)
-    rs = torch.cat([rows, rows.new_zeros((1, 3))])
-    g = torch.where((groups >= 0) & (groups < L1), groups.long(), L1)
-    y = torch.einsum("lij,lj->li", hpp_inv, rs[g].sum(1))                      # (L, 3)
+    if groups is None:
+        pts = rows.new_zeros((L, 3)).index_add_(0, row_point.long(), rows)
+    else:
+        rs = torch.cat([rows, rows.new_zeros((1, 3))])
+        g = torch.where((groups >= 0) & (groups < L1), groups.long(), L1)
+        pts = rs[g].sum(1)
+    y = torch.einsum("lij,lj->li", hpp_inv, pts)                               # (L, 3)
     y_slot = y[row_point.long().clamp(0, L - 1)].repeat_interleave(R, 0)      # (O, 3)
     return u + sign * (jx * y_slot[:, None, :]).sum(-1)
 
@@ -188,45 +194,37 @@ class SmatvecPlan(NamedTuple):
     sizes: tuple = ()                       # element counts of jp, ji, jx, vp, vi, hpp_inv
 
 
-def tile_plan(row_point, groups, n_slots, tile=TILE):
-    """Check that the tables are the contiguous point-major form that
+def tile_plan(row_point, n_points, n_slots, tile=TILE):
+    """Check that row_point is the contiguous point-major form that
     sfm/ba.py::build_pt_obs makes, and cut the rows into tiles at point
-    boundaries.  The form: R = n_slots / L1 a power of two up to 32; point
-    l owns n_l >= 1 rows, groups[l, c] = groups[l, 0] + c for c < n_l and
-    an entry outside [0, L1) after that; the points' rows follow each other
-    in point order from row 0 to L1, and row_point agrees.  Tiles take
-    whole points greedily, in order, up to `tile` slots; a point of more
-    slots than that gets a tile to itself.  The check runs as elementwise
-    ops on the tables' device; the host reads only each point's first row
-    (L + 1 ints) and the verdict, in one copy, and cuts the tiles from
-    them.  Returns (pt_row0 (L + 1,), tiles (n_tiles, 4): first row, end
-    row, first point, end point), int32 on the tables' device; raises
+    boundaries.  The form: R = n_slots / L1 a power of two up to 32;
+    row_point runs 0, .., n_points - 1 in steps of 0 or 1, so that each
+    point owns a run of rows of its own, in point order.  Tiles take whole
+    points greedily, in order, up to `tile` slots; a point of more slots
+    than that gets a tile to itself.  The check runs as elementwise ops on
+    row_point's device; the host reads only each point's first row (L + 1
+    ints) and the verdict, in one copy, and cuts the tiles from them.
+    Returns (pt_row0 (L + 1,), tiles (n_tiles, 4): first row, end row,
+    first point, end point), int32 on row_point's device; raises
     ValueError for any other form."""
-    L1 = row_point.shape[0]
-    if groups.dim() != 2 or L1 == 0 or n_slots % L1:
-        raise ValueError(f"{n_slots} slots and {L1} rows do not form a point-major layout")
+    L1, L = row_point.shape[0], int(n_points)
+    if row_point.dim() != 1 or L1 == 0 or L == 0 or n_slots % L1:
+        raise ValueError(f"{n_slots} slots, {L1} rows and {L} points do not form a "
+                         f"point-major layout")
     R = n_slots // L1
     if R > 32 or R & (R - 1):
         raise ValueError(f"{R} slots a row: the kernel takes a power of two up to 32")
-    L, M = groups.shape
-    dev = groups.device
-    rp = row_point.to(device=dev, dtype=torch.int64).contiguous()
-    # row_point runs 0, .., L - 1 in steps of 0 or 1: every point owns a
-    # run of rows, in point order; off[l] is its first row, off[L] = L1
+    dev = row_point.device
+    rp = row_point.to(dtype=torch.int64).contiguous()
+    # off[l] is point l's first row, off[L] = L1
     off = torch.searchsorted(rp, torch.arange(L + 1, device=dev))
-    n = off[1:] - off[:-1]
     step = rp[1:] - rp[:-1]
-    g = groups.long()
-    col = torch.arange(M, device=dev)
-    inside = (g >= 0) & (g < L1)
-    ok = ((rp[0] == 0) & (rp[-1] == L - 1) & ((step == 0) | (step == 1)).all()
-          & (n <= M).all()
-          & ((inside == (col < n[:, None])) & (~inside | (g == off[:-1, None] + col))).all())
+    ok = (rp[0] == 0) & (rp[-1] == L - 1) & ((step == 0) | (step == 1)).all()
     host = torch.cat([off, ok.long()[None]]).cpu().numpy()
-    if L == 0 or not host[-1]:
-        raise ValueError("the group table is not the contiguous point-major form of "
+    if not host[-1]:
+        raise ValueError("row_point is not the contiguous point-major form of "
                          "sfm/ba.py::build_pt_obs (each point's rows in a run of its own, "
-                         "in point order, sentinels after them)")
+                         "in point order)")
     off_h = host[:-1]
     ends = off_h[1:] * R
     tiles = []
@@ -240,16 +238,16 @@ def tile_plan(row_point, groups, n_slots, tile=TILE):
                             dtype=torch.int32).to(dev))
 
 
-def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plans=None):
+def smatvec_plan(pose_ids, intr_ids, row_point, n_points, n_pose, n_intr, seg_plans=None):
     """The kernel's int32 tables, tile plan and K2 plans (seg_plans: the
     (pose, intrinsic) K2 plans a bundle adjustment problem already holds),
-    and on the card its scratch.  Every check that does not depend on a
-    call's vectors and blocks is made here, once.  Raises ValueError when
-    the tables are not the contiguous point-major form (tile_plan) or do
-    not fit the kernel."""
+    and on the card its scratch, for n_points points.  Every check that
+    does not depend on a call's vectors and blocks is made here, once.
+    Raises ValueError when row_point is not the contiguous point-major
+    form (tile_plan) or the ids do not fit the kernel."""
     i32 = torch.int32
     O = pose_ids.shape[0]
-    pt_row0, tiles = tile_plan(row_point, groups, O)
+    pt_row0, tiles = tile_plan(row_point, n_points, O)
     plan_p, plan_i = seg_plans if seg_plans is not None else (
         k2.seg_sum_plan(pose_ids, n_pose), k2.seg_sum_plan(intr_ids, n_intr))
     plan = SmatvecPlan(pose_ids=pose_ids.to(i32).contiguous(),
@@ -257,9 +255,9 @@ def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plan
                        plan_p=plan_p, plan_i=plan_i, pt_row0=pt_row0, tiles=tiles)
     if pose_ids.device.type != "cuda":
         return plan
-    dev, L = pose_ids.device, groups.shape[0]
+    dev, L = pose_ids.device, int(n_points)
     if (intr_ids.shape != (O,) or pose_ids.dim() != 1
-            or any(t.device != dev for t in (intr_ids, row_point, groups))):
+            or any(t.device != dev for t in (intr_ids, row_point))):
         raise ValueError("the ids and tables must be (O,) ids and tables on one device")
     if O >= 2 ** 31 // 16:
         raise ValueError(f"{O} slots: slot offsets must fit int32")
@@ -292,8 +290,9 @@ def smatvec_plan(pose_ids, intr_ids, row_point, groups, n_pose, n_intr, seg_plan
 
 
 def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, plan=None):
-    """(sp (P, 6), si (I, 8)) of the contract above.  `plan` (smatvec_plan
-    of the same ids and tables) saves its construction on repeated calls,
+    """(sp (P, 6), si (I, 8)) of the contract above (groups, or None, is
+    read by the plain version only).  `plan` (smatvec_plan of the same ids
+    and rows) saves its construction on repeated calls,
     and then the ids and tables are not read again; a call checks only
     its float inputs against the plan.  After a call on the card, plan.e
     holds the call's e."""
@@ -308,7 +307,8 @@ def smatvec(jp, ji, jx, pose_ids, intr_ids, vp, vi, hpp_inv, row_point, groups, 
     if jp.device.type != "cuda":
         raise ValueError(f"unsupported device {jp.device}")
     if plan is None:
-        plan = smatvec_plan(pose_ids, intr_ids, row_point, groups, vp.shape[0], vi.shape[0])
+        plan = smatvec_plan(pose_ids, intr_ids, row_point, hpp_inv.shape[0], vp.shape[0],
+                            vi.shape[0])
     if plan.tables is None or plan.e.device != jp.device:
         raise ValueError("the plan was built for another device")
     f32 = [jp, ji, jx, vp, vi, hpp_inv]

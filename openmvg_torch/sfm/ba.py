@@ -20,13 +20,19 @@ never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
                each point's observations are contiguous R-slot rows, so a
                point sum is a reshape-sum, the same order on every run
 
-On the card, an unsharded float32 problem in the point-major layout with
-a group table runs each CG iteration's matvec through kernel K3
-(ops/smatvec.py) instead, with K3's plan built once a problem beside K2's
-(with_plans); every other problem (the CPU, float64, the gather-form
-tables, no group table, a sharded solve) takes the unfused sequence of
-J-products and K2 sums.  The reference keeps its fused matvec off unless
+On the card, an unsharded float32 problem in the point-major layout runs
+each CG iteration's matvec through kernel K3 (ops/smatvec.py) instead,
+with K3's plan built once a problem beside K2's (with_plans) from the
+rows' points alone; every other problem (the CPU, float64, the gather-form
+tables, a sharded solve) takes the unfused sequence of J-products and K2
+sums.  The reference keeps its fused matvec off unless
 OMT_FUSED_SMATVEC=1; the port has no switch.
+
+The Jacobian blocks are evaluated in one pass, or on the card, where the
+memory the process can still take would not hold one pass of the generic
+forward-mode Jacobians (JAC_BYTES_PER_SLOT a slot), in chunks of whole
+rows written into the blocks; each block depends on its own row alone, so
+the chunked blocks are the one-pass blocks bit for bit.
 
 Sharded solves (parallel/dist_ba.py) pass a process group: each rank
 holds its rows of the observation table, forms its J-products and sums
@@ -53,7 +59,8 @@ the CG loop), ba.cg (the loop, a host_read for each stopping test) and
 ba.backsub, all with device times on the card.  Every read of the device
 goes through host_read.  The counters: ba.cg_iterations (the
 iterations each CG loop ran), ba.cg_k3 (those of them whose matvec ran
-in K3) and ba.lm_accepted (the accepted steps).
+in K3), ba.lm_accepted (the accepted steps) and ba.jac_chunks (the
+chunks the Jacobians took, one for a pass).
 """
 
 from typing import NamedTuple
@@ -73,6 +80,15 @@ from openmvg_torch.utils.logging import count, host_read, span
 # refine-option masks (Intrinsic_Parameter_Type / Extrinsic_Parameter_Type)
 ADJUST_ALL = "ALL"
 ADJUST_NONE = "NONE"
+
+# Peak device bytes a slot of one pass of jacobians through the generic
+# forward-mode Jacobians (_generic_r_J: the gathers, vmap(jacfwd) with its
+# float64 tangents, the weights and masks), its returned blocks included:
+# torch.cuda.max_memory_allocated over one call, less what was allocated
+# before it, over the slots: 3,886.35 B on an NVIDIA H100 80GB HBM3 at BAL
+# Dubrovnik's float32 camera-model-3 layout (1,600,800 slots), rounded up.
+JAC_BYTES_PER_SLOT = 3887
+
 
 class PtObsTable(NamedTuple):
     """Point-side reduction tables (see build_pt_obs).
@@ -111,10 +127,14 @@ class BAProblem(NamedTuple):
     pt_obs: PtObsTable = None
     # K2 plans for obs_pose and obs_intr (with_plans); None on the CPU
     seg_plans: tuple = None
-    # K2 plan for obs_point when pt_obs is None (with_plans)
+    # K2 plan for obs_point when pt_obs is None, or for pt_obs.row_point when
+    # it has no group table (with_plans)
     point_plan: object = None
     # K3 plan (ops/smatvec.py) when k3_gate holds, built with seg_plans
     k3_plan: object = None
+    # slots of one chunk of jacobians (with_plans, on the card), whole rows
+    # of the point-major layout; None: one pass
+    jac_slots: int = None
 
 
 class BAConfig(NamedTuple):
@@ -266,8 +286,7 @@ def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False, group=None):
     return c + 0.5 * (rp * rp).sum()
 
 
-def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
-    """Weighted residuals and Jacobian blocks with the masks applied."""
+def _weighted_r_J(p: BAProblem, cfg: BAConfig, cam_fast):
     r, Jp6, Ji8, Jx3 = _fast_pinhole_r_J(p) if cam_fast else _generic_r_J(p)
     w = _huber_sqrt_weight(r, cfg.huber_a, cfg.use_huber) * p.obs_w
     r = r * w[:, None]
@@ -275,6 +294,57 @@ def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
     Ji8 = Ji8 * w[:, None, None] * p.mask_intr[p.obs_intr][:, None, :]
     Jx3 = Jx3 * w[:, None, None] * _pt_expand(p.mask_X[:, None], p)[:, None, :]
     return r, Jp6, Ji8, Jx3
+
+
+def _obs_range(p: BAProblem, s0, s1):
+    """p restricted to the observation slots [s0, s1): whole rows of the
+    point-major layout, any slots of the other forms."""
+    t = p.pt_obs
+    if t is not None and t.rows is None:
+        R = p.obs_pose.shape[0] // t.row_point.shape[0]
+        t = PtObsTable(rows=None, row_point=t.row_point[s0 // R:s1 // R], groups=None)
+    else:
+        t = None   # _pt_expand then gathers through obs_point
+    return p._replace(pt_obs=t, **{f: getattr(p, f)[s0:s1] for f in
+                                   ("obs_pose", "obs_intr", "obs_point", "obs_x", "obs_w")})
+
+
+def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
+    """Weighted residuals and Jacobian blocks with the masks applied: in one
+    pass, or in chunks of p.jac_slots slots written into the blocks."""
+    O, step = p.obs_pose.shape[0], p.jac_slots
+    if step is None or step >= O:
+        count("ba.jac_chunks", 1)
+        return _weighted_r_J(p, cfg, cam_fast)
+    out = None
+    for s0 in range(0, O, step):
+        s1 = min(s0 + step, O)
+        blocks = _weighted_r_J(_obs_range(p, s0, s1), cfg, cam_fast)
+        if out is None:   # the one-pass blocks' strides (jacfwd leaves them transposed)
+            out = [torch.empty_strided((O,) + b.shape[1:], b.stride(), dtype=b.dtype,
+                                       device=b.device) for b in blocks]
+        for o, b in zip(out, blocks):
+            o[s0:s1] = b
+        del blocks
+    count("ba.jac_chunks", -(-O // step))
+    return tuple(out)
+
+
+def jac_chunk_slots(p: BAProblem):
+    """Slots of one chunk of jacobians on the card: half of what the process
+    can still allocate (the card's free memory and the allocator's unused
+    cache), less the blocks jacobians returns, over JAC_BYTES_PER_SLOT, in
+    whole rows of the point-major layout; None where one pass fits."""
+    dev = p.X.device
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    O = p.obs_pose.shape[0]
+    slots = (free - O * 36 * p.X.element_size()) // 2 // JAC_BYTES_PER_SLOT
+    if slots >= O:
+        return None
+    t = p.pt_obs
+    R = O // t.row_point.shape[0] if t is not None and t.rows is None else 1
+    return max(R, slots // R * R)
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +360,12 @@ def _seg_sum(vals, ids, num, plan=None):
 
 def k3_gate(p: BAProblem, group=None):
     """Whether the CG matvec of `p` runs through kernel K3: an unsharded
-    float32 problem on the card, in the point-major layout with a group
-    table (on the CPU, K3's plain version is no faster than the unfused
-    matvec)."""
+    float32 problem on the card, in the point-major layout, with or without
+    a group table (on the CPU, K3's plain version is no faster than the
+    unfused matvec)."""
     t = p.pt_obs
     if (group is not None or not p.X.is_cuda or p.X.dtype != torch.float32
-            or t is None or t.rows is not None or t.groups is None):
+            or t is None or t.rows is not None):
         return False
     L1 = t.row_point.shape[0]
     return L1 > 0 and p.obs_pose.shape[0] % L1 == 0
@@ -303,21 +373,24 @@ def k3_gate(p: BAProblem, group=None):
 
 def with_plans(p: BAProblem, group=None):
     """The problem with K2 plans for its pose and intrinsic ids, for its
-    point ids when it has no point tables, and K3's plan, reusing K2's,
-    when k3_gate holds: all built once per problem on the card, whenever
-    seg_plans is None, so a problem whose seg_plans were cleared gets them
-    all anew.  The plain CPU path needs none."""
+    point ids when it has no point tables, or for its rows' points when it
+    has no group table, K3's plan, reusing K2's, when k3_gate holds, and
+    the Jacobians' chunk (jac_chunk_slots): all built once per problem on
+    the card, whenever seg_plans is None, so a problem whose seg_plans were
+    cleared gets them all anew.  The plain CPU path needs none."""
     if p.obs_pose.device.type != "cuda" or p.seg_plans is not None:
         return p
     seg_plans = (k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
                  k2.seg_sum_plan(p.obs_intr, p.intr_params.shape[0]))
-    t = p.pt_obs
+    t, n_pts = p.pt_obs, p.X.shape[0]
     return p._replace(
         seg_plans=seg_plans,
-        point_plan=k2.seg_sum_plan(p.obs_point, p.X.shape[0]) if t is None else None,
-        k3_plan=(k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
+        point_plan=(k2.seg_sum_plan(p.obs_point, n_pts) if t is None else
+                    k2.seg_sum_plan(t.row_point, n_pts) if t.groups is None else None),
+        k3_plan=(k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, n_pts,
                                  p.rotvec.shape[0], p.intr_params.shape[0], seg_plans)
-                 if k3_gate(p, group) else None))
+                 if k3_gate(p, group) else None),
+        jac_slots=jac_chunk_slots(p))
 
 
 def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
@@ -403,7 +476,7 @@ def _pt_seg_sum(vals, p: BAProblem, num):
     if row_sums.shape[0] == num and t.groups is not None and t.groups.shape[1] == 1:
         return row_sums  # one row per point: level 2 is the identity
     if t.groups is None:
-        return _seg_sum(row_sums, t.row_point, num)
+        return _seg_sum(row_sums, t.row_point, num, p.point_plan)
     rs = torch.cat([row_sums, row_sums.new_zeros((1,) + row_sums.shape[1:])], 0)
     return rs[t.groups].sum(1)
 

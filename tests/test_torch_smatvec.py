@@ -117,8 +117,9 @@ def with_k3_plan(p):
     """p with K3's plan, as with_plans builds it on the card, so that its
     CG matvec runs through K3's plain version on the CPU."""
     t = p.pt_obs
-    return p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
-                                              p.rotvec.shape[0], p.intr_params.shape[0]))
+    return p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point,
+                                              p.X.shape[0], p.rotvec.shape[0],
+                                              p.intr_params.shape[0]))
 
 
 def claims_the_card(p):
@@ -172,8 +173,9 @@ def test_fused_schur_cg_solve_matches_unfused(monkeypatch):
 
 def test_fused_gate_declines_what_the_reference_declines():
     """The gate: an unsharded float32 problem on the card, in the
-    point-major layout with a group table; anything else takes the
-    unfused matvec, and with_plans builds no K3 plan for it."""
+    point-major layout, with a group table or without one (K3 plans from
+    the rows' points alone); anything else takes the unfused matvec, and
+    with_plans builds no K3 plan for it."""
     p = _f32_problem()
     assert not tba.k3_gate(p)                                            # the CPU
     assert tba.with_plans(p).k3_plan is None
@@ -184,7 +186,7 @@ def test_fused_gate_declines_what_the_reference_declines():
     t = p.pt_obs
     rows = torch.arange(p.obs_pose.shape[0]).reshape(t.row_point.shape[0], -1)
     assert not tba.k3_gate(c._replace(pt_obs=t._replace(rows=rows)))     # gather form
-    assert not tba.k3_gate(c._replace(pt_obs=t._replace(groups=None)))   # no group table
+    assert tba.k3_gate(c._replace(pt_obs=t._replace(groups=None)))       # no group table
     assert not tba.k3_gate(c._replace(pt_obs=None))
     assert not tba.k3_gate(c, group=object())                            # sharded
 

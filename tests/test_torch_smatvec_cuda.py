@@ -85,7 +85,7 @@ def dev():
 @pytest.mark.parametrize("name,P,I,R,L,max_obs,kind", CASES, ids=[c[0] for c in CASES])
 def test_kernel_matches_plain_and_repeats(dev, name, P, I, R, L, max_obs, kind):
     args = [torch.as_tensor(a, device=dev) for a in k3_case(P, I, R, L, max_obs, kind, P + R)]
-    plan = k3.smatvec_plan(args[3], args[4], args[8], args[9], P, I)
+    plan = k3.smatvec_plan(args[3], args[4], args[8], L, P, I)
     before = k3.LAUNCHES
     got = k3.smatvec(*args)
     again = k3.smatvec(*args, plan=plan)
@@ -105,13 +105,36 @@ def test_kernel_matches_plain_and_repeats(dev, name, P, I, R, L, max_obs, kind):
         assert bool((got[0][P // 2] == 0).all())       # the pose without observations
 
 
+@pytest.mark.parametrize("name,P,I,R,L,max_obs,kind", CASES[:4] + CASES[6:],
+                         ids=[c[0] for c in CASES[:4] + CASES[6:]])
+def test_kernel_without_a_group_table_matches_plain(dev, name, P, I, R, L, max_obs, kind):
+    """K3 planned from row_point alone (no group table anywhere, as at a
+    problem over build_pt_obs's table budget): within 1e-5 (1 + S) of the
+    plain version, which folds the rows through row_point, in float64;
+    two calls bitwise equal."""
+    args = [torch.as_tensor(a, device=dev) for a in k3_case(P, I, R, L, max_obs, kind, P + R)]
+    args[9] = None
+    plan = k3.smatvec_plan(args[3], args[4], args[8], L, P, I)
+    got = k3.smatvec(*args, plan=plan)
+    again = k3.smatvec(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    d = [None if a is None else a.double().cpu() if a.is_floating_point() else a.cpu()
+         for a in args]
+    ref = k3.smatvec_plain(*d)
+    mag = k3.smatvec_magnitudes(*d)
+    for g, r, s in zip(got, ref, mag):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g.double().cpu() - r).abs() <= 1e-5 * (1 + s)).all())
+
+
 def test_wrapper_raises_on_unsupported(dev):
     args = [torch.as_tensor(a, device=dev) for a in k3_case(4, 1, 4, 50, 5, None, 0)]
     with pytest.raises(TypeError):
         k3.smatvec(args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         k3.smatvec(*args[:5], args[5][:, :5], *args[6:])
-    cpu_plan = k3.smatvec_plan(*[a.cpu() for a in (args[3], args[4], args[8], args[9])], 4, 1)
+    cpu_plan = k3.smatvec_plan(*[a.cpu() for a in (args[3], args[4], args[8])], 50, 4, 1)
     with pytest.raises(ValueError, match="plan"):
         k3.smatvec(*args, plan=cpu_plan)
 
@@ -130,7 +153,7 @@ def test_kernel_at_the_bal_cell_s_shape_class(dev):
     c[4] = c[3].copy()                     # one intrinsic a camera
     args = [torch.as_tensor(a, device=dev) for a in c]
     assert c[9].shape[1] == 36             # the widest point's rows
-    plan = k3.smatvec_plan(args[3], args[4], args[8], args[9], 356, 356)
+    plan = k3.smatvec_plan(args[3], args[4], args[8], 12000, 356, 356)
     got = k3.smatvec(*args, plan=plan)
     again = k3.smatvec(*args, plan=plan)
     torch.cuda.synchronize()

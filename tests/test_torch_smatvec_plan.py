@@ -60,7 +60,7 @@ def _check_tiles(pt_row0, tiles, L1, R, tile):
 def test_tile_plan_cuts_at_point_boundaries(name, P, I, R, L, max_obs, kind, tile):
     args = _layout(P, I, R, L, max_obs, kind)
     row_point, groups = args[8], args[9]
-    pt_row0, tiles = k3.tile_plan(row_point, groups, args[0].shape[0], tile)
+    pt_row0, tiles = k3.tile_plan(row_point, groups.shape[0], args[0].shape[0], tile)
     assert pt_row0.dtype == torch.int32 and tiles.dtype == torch.int32
     rows = np.bincount(row_point.numpy(), minlength=L)
     assert np.array_equal(np.diff(pt_row0.numpy()), rows)
@@ -71,7 +71,7 @@ def test_tile_plan_of_more_points_than_one_tile():
     """R 8, tracks of 1-40 slots, thousands of points: many tiles, each
     filled close to the tile size."""
     args = _layout(7, 2, 8, 4000, 40, None)
-    pt_row0, tiles = k3.tile_plan(args[8], args[9], args[0].shape[0])
+    pt_row0, tiles = k3.tile_plan(args[8], args[9].shape[0], args[0].shape[0])
     t = tiles.numpy()
     slots = (t[:, 1] - t[:, 0]) * 8
     assert t.shape[0] >= args[0].shape[0] // k3.TILE
@@ -79,7 +79,10 @@ def test_tile_plan_of_more_points_than_one_tile():
 
 
 def _broken_tables():
-    """(name, row_point, groups, slots): tables the kernel must refuse."""
+    """(name, row_point, groups, slots): tables the kernel must refuse.
+    The plan reads row_point and the point count (groups' rows) alone; each
+    table's group table is broken as its row_point is, for the host plan,
+    which reads both."""
     base = _layout(4, 1, 4, 50, 9, None)
     rp, g, O = base[8], base[9], base[0].shape[0]
     L1 = rp.shape[0]
@@ -88,15 +91,18 @@ def _broken_tables():
     rp2 = torch.cat([rp, torch.full((2,), 50, dtype=rp.dtype)])
     g2 = torch.where(g >= L1, torch.full_like(g, L1), g)
     out.append(("padding_rows", rp2, g2, O + 8))
-    # two points' first rows swapped
-    g3 = g.clone()
-    g3[[0, 1], 0] = g3[[1, 0], 0]
-    out.append(("rows_out_of_order", rp, g3, O))
-    # a sentinel before a point's last row
+    # the first row of point 1 before the last row of point 0
     multi = int(torch.nonzero((g < L1).sum(1) > 1)[0, 0])
-    g4 = g.clone()
+    r = int(g[multi + 1, 0])
+    rp3, g3 = rp.clone(), g.clone()
+    rp3[[r - 1, r]] = rp3[[r, r - 1]]
+    g3[multi + 1, 0], g3[multi, int((g[multi] < L1).sum()) - 1] = r - 1, r
+    out.append(("rows_out_of_order", rp3, g3, O))
+    # a point's run of rows broken by another point's row
+    rp4, g4 = rp.clone(), g.clone()
+    rp4[int(g[multi, 0])] = multi + 1
     g4[multi, 0] = L1
-    out.append(("sentinel_inside_a_run", rp, g4, O))
+    out.append(("sentinel_inside_a_run", rp4, g4, O))
     # row_point disagrees with the group table
     rp5 = rp.clone()
     rp5[0] = 1
@@ -114,10 +120,10 @@ def _broken_tables():
 def test_tile_plan_refuses_other_layouts(case):
     name, rp, g, O = _broken_tables()[case]
     with pytest.raises(ValueError):
-        k3.tile_plan(rp, g, O)
+        k3.tile_plan(rp, g.shape[0], O)
     with pytest.raises(ValueError):
         k3.smatvec_plan(torch.zeros(O, dtype=torch.int32), torch.zeros(O, dtype=torch.int32),
-                        rp, g, 4, 1)
+                        rp, g.shape[0], 4, 1)
 
 
 def _host_tile_plan(row_point, groups, n_slots, tile=k3.TILE):
@@ -163,7 +169,7 @@ def test_tile_plan_equals_the_host_plan(name, P, I, R, L, max_obs, kind, tile):
     table."""
     args = _layout(P, I, R, L, max_obs, kind, seed=R)
     rp, g, O = args[8], args[9], args[0].shape[0]
-    pt_row0, tiles = k3.tile_plan(rp, g, O, tile)
+    pt_row0, tiles = k3.tile_plan(rp, g.shape[0], O, tile)
     ref = _host_tile_plan(rp, g, O, tile)
     assert ref is not None
     assert np.array_equal(pt_row0.numpy(), ref[0])
@@ -173,7 +179,7 @@ def test_tile_plan_equals_the_host_plan(name, P, I, R, L, max_obs, kind, tile):
     for _, brp, bg, bO in _broken_tables():
         assert _host_tile_plan(brp, bg, bO, tile) is None
         with pytest.raises(ValueError):
-            k3.tile_plan(brp, bg, bO, tile)
+            k3.tile_plan(brp, bg.shape[0], bO, tile)
 
 
 def _f64(args):
@@ -209,7 +215,7 @@ def test_each_tile_finishes_its_points_alone(name, P, I, R, L, max_obs, kind, ti
     d = _f64(_layout(P, I, R, L, max_obs, kind, seed=1))
     jp, ji, jx, pose, intr, vp, vi, hinv, rp, g = d
     O = jp.shape[0]
-    pt_row0, tiles = k3.tile_plan(rp, g, O, tile)
+    pt_row0, tiles = k3.tile_plan(rp, g.shape[0], O, tile)
     u = (jp.reshape(O, 2, 6) * vp[pose.long()][:, None]).sum(-1) + \
         (ji.reshape(O, 2, 8) * vi[intr.long()][:, None]).sum(-1)
     jx3 = jx.reshape(O, 2, 3)
@@ -228,7 +234,7 @@ def test_each_tile_finishes_its_points_alone(name, P, I, R, L, max_obs, kind, ti
 
 def test_plan_on_the_cpu_holds_no_scratch():
     args = _layout(4, 1, 8, 100, 20, None)
-    plan = k3.smatvec_plan(args[3], args[4], args[8], args[9], 4, 1)
+    plan = k3.smatvec_plan(args[3], args[4], args[8], 100, 4, 1)
     assert plan.e is None and plan.tables is None
     assert plan.tiles.shape[1] == 4 and plan.pt_row0.shape == (101,)
     got = k3.smatvec(*args, plan=plan)

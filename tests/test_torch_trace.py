@@ -151,8 +151,9 @@ def test_k3_counter_counts_the_iterations_k3_ran(with_plan, monkeypatch):
                                             image_wh=[2000, 2000], dtype="float32"), "cpu")
     if with_plan:
         t = p.pt_obs
-        p = p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, t.groups,
-                                               p.rotvec.shape[0], p.intr_params.shape[0]))
+        p = p._replace(k3_plan=k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point,
+                                               p.X.shape[0], p.rotvec.shape[0],
+                                               p.intr_params.shape[0]))
     with _cpu_session():
         ba.adjust(p, ba.BAConfig(max_iterations=3))
     c = omt.records()["counters"]
@@ -171,6 +172,37 @@ def test_accepted_counter_equals_the_solve_s_count():
         _, _, n_acc = ba.adjust(_problem(), ba.BAConfig(max_iterations=6))
     r = omt.records()
     assert n_acc > 0 and r["counters"]["ba.lm_accepted"] == n_acc
+
+
+@pytest.mark.parametrize("rows", [None, 40])
+def test_jac_chunks_counts_the_chunks_of_each_step(rows):
+    """ba.jac_chunks: one a step for a pass, ceil(O / jac_slots) a step for
+    a problem whose Jacobians are chunked (forced here; on the card
+    with_plans sets jac_slots from the free memory)."""
+    p = _problem()
+    O = p.obs_pose.shape[0]
+    step = None if rows is None else rows * (O // p.pt_obs.row_point.shape[0])
+    with _cpu_session():
+        ba.adjust(p._replace(jac_slots=step), ba.BAConfig(max_iterations=3))
+    r = omt.records()
+    steps = sum(s.name == "ba.lm_step" for s in r["spans"])
+    assert steps == 3
+    assert r["counters"]["ba.jac_chunks"] == steps * (1 if step is None else -(-O // step))
+    assert step is None or O % step
+
+
+def test_jac_chunks_add_up_over_solves_and_nothing_without_a_session():
+    """ba.jac_chunks: one a step of each solve in a profiler session, added
+    over the solves; nothing recorded with no session."""
+    p = _problem()
+    ba.adjust(p, ba.BAConfig(max_iterations=2))
+    assert omt.records()["counters"] == {}
+    with _cpu_session():
+        for _ in range(3):
+            ba.adjust(p, ba.BAConfig(max_iterations=2))
+    r = omt.records()
+    assert r["counters"]["ba.jac_chunks"] == sum(s.name == "ba.lm_step" for s in r["spans"])
+    assert r["counters"]["ba.jac_chunks"] == 6
 
 
 @pytest.mark.parametrize("kind", [cm.PINHOLE_RADIAL_K3, cm.PINHOLE])
@@ -326,9 +358,48 @@ def test_k3_roofline_reads_the_bound_of_each_counted_call_over_k3_s_device_time(
     assert read(ctx) is None                           # K3 did not launch
 
 
+def test_k3_roofline_final_reads_the_bound_without_a_table(monkeypatch):
+    """k3_roofline.final: bounds.smatvec_bound_ms at the problem's layout
+    with a table of width 0 (K3 reads none), once a call counted in
+    ba.cg_k3 (12), over the device time of K3's two launches; it reads the
+    problem without a group table that k3_roofline.ba leaves out."""
+    from types import SimpleNamespace
+
+    from benchmark import bounds
+
+    monkeypatch.setattr(omt, "records", _hand_built)
+    p = _problem()
+    p = p._replace(pt_obs=p.pt_obs._replace(groups=None))
+    tr = _trace(BUSY)
+    tr.events = [("smatvec_tiles(TileArgs)", 0, 3 * MS), ("camera_sums_kernel", 3 * MS, 9 * MS),
+                 ("void smatvec_camera_sums(float const*)", 10 * MS, 15 * MS)]
+    bound_ms = bounds.smatvec_bound_ms(p.obs_pose.shape[0], p.pt_obs.row_point.shape[0],
+                                       p.X.shape[0], 0, 12, p.intr_params.shape[0])
+    ctx = {"trace": tr, "state": SimpleNamespace(p0=p)}
+    got = harness.reader("k3_roofline.final")(ctx)
+    assert got == pytest.approx(100.0 * 12 * bound_ms / 8.0, rel=1e-12)
+    assert harness.reader("k3_roofline.ba")(ctx) is None
+
+
+def test_peak_mem_final_reads_the_allocators_peak_over_the_card():
+    """peak_mem.final: the allocator's peak over the window (the harness
+    resets it as the window starts), as a share of the card's total
+    memory; None off the card."""
+    from types import SimpleNamespace
+
+    card = SimpleNamespace(cuda=SimpleNamespace(
+        max_memory_allocated=lambda: 20 * 2 ** 30,
+        get_device_properties=lambda i: SimpleNamespace(total_memory=80 * 2 ** 30)))
+    read = harness.reader("peak_mem.final")
+    assert read({"trace": _trace(BUSY), "torch": card}) == pytest.approx(25.0, rel=1e-12)
+    assert read({"trace": None, "torch": card}) is None          # off the card
+    assert read({"trace": _trace(BUSY)}) is None                  # no torch given
+
+
 @pytest.mark.parametrize("name", ["cg_iters.ba", "host_reads.ba", "lm_accept.ba", "jac_s.ba",
                                   "cg_s.ba", "idle_read.ba", "idle_issue.ba",
-                                  "k3_share.ba", "k3_roofline.ba"])
+                                  "k3_share.ba", "k3_roofline.ba", "k3_roofline.final",
+                                  "peak_mem.final"])
 def test_each_reader_gives_none_where_nothing_was_recorded(name, monkeypatch):
     read = harness.reader(name)
     assert read({"trace": _trace(BUSY)}) is None      # no records
