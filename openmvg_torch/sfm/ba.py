@@ -7,9 +7,21 @@ residuals, Huber loss with a = 4^2, masks that hold parts of the
 intrinsics, poses or structure constant, GPS pose-centre priors.  One
 flat observation table (pose id, intrinsic id, point id, pixel): residuals
 and the (O, 2, 6) pose, (O, 2, 8) intrinsic and (O, 2, 3) point Jacobian
-blocks come from one batched call, closed form for all-pinhole problems
-(cam_fast) and torch.func forward-mode otherwise.  The Schur complement is
-never formed: CG runs on J-products, per-point 3x3 solves and segment sums.
+blocks come from one batched call on one of three paths, chosen once a
+solve from the intrinsic kinds (cam_fast_ok, one host read):
+
+  JAC_PINHOLE  every intrinsic a plain PINHOLE: closed form (the
+               reference's cam_fast)
+  JAC_POLY     every intrinsic of kind 2, 3 or 4 (radial K1, radial K3,
+               Brown T2, one additive distortion formula): closed form, in
+               the problem's dtype (the reference has none)
+  JAC_GENERIC  any fisheye or spherical intrinsic: torch.func forward
+               mode over every camera kind, with float64 tangents
+               (torch.func's promotion) cast back
+
+The costs take the projection of the path that the Jacobians take.  The
+Schur complement is never formed: CG runs on J-products, per-point 3x3
+solves and segment sums.
 
   camera side  J^T u and J^T J over the pose and intrinsic slots go through
                kernel K2's fused camera sums (ops/seg_sum.py: camera_jtu,
@@ -29,10 +41,11 @@ sums.  The reference keeps its fused matvec off unless
 OMT_FUSED_SMATVEC=1; the port has no switch.
 
 The Jacobian blocks are evaluated in one pass, or on the card, where the
-memory the process can still take would not hold one pass of the generic
-forward-mode Jacobians (JAC_BYTES_PER_SLOT a slot), in chunks of whole
-rows written into the blocks; each block depends on its own row alone, so
-the chunked blocks are the one-pass blocks bit for bit.
+memory the process can still take would not hold one pass of the path
+that runs (JAC_BYTES_PER_SLOT a slot for the generic path,
+JAC_CLOSED_BYTES_PER_SLOT for the closed forms), in chunks of whole rows
+written into the blocks; each block depends on its own row alone, so the
+chunked blocks are the one-pass blocks bit for bit.
 
 Sharded solves (parallel/dist_ba.py) pass a process group: each rank
 holds its rows of the observation table, forms its J-products and sums
@@ -59,8 +72,9 @@ the CG loop), ba.cg (the loop, a host_read for each stopping test) and
 ba.backsub, all with device times on the card.  Every read of the device
 goes through host_read.  The counters: ba.cg_iterations (the
 iterations each CG loop ran), ba.cg_k3 (those of them whose matvec ran
-in K3), ba.lm_accepted (the accepted steps) and ba.jac_chunks (the
-chunks the Jacobians took, one for a pass).
+in K3), ba.lm_accepted (the accepted steps), ba.jac_chunks (the
+chunks the Jacobians took, one for a pass) and ba.jac_closed (those of
+them that a closed form, pinhole or polynomial, computed).
 """
 
 from typing import NamedTuple
@@ -81,13 +95,22 @@ from openmvg_torch.utils.logging import count, host_read, span
 ADJUST_ALL = "ALL"
 ADJUST_NONE = "NONE"
 
+# The Jacobians' paths (cam_fast_ok); False and True name the first two.
+JAC_GENERIC, JAC_PINHOLE, JAC_POLY = 0, 1, 2
+
 # Peak device bytes a slot of one pass of jacobians through the generic
 # forward-mode Jacobians (_generic_r_J: the gathers, vmap(jacfwd) with its
 # float64 tangents, the weights and masks), its returned blocks included:
 # torch.cuda.max_memory_allocated over one call, less what was allocated
 # before it, over the slots: 3,886.35 B on an NVIDIA H100 80GB HBM3 at BAL
 # Dubrovnik's float32 camera-model-3 layout (1,600,800 slots), rounded up.
+# Fisheye, spherical and mixed problems take this path.
 JAC_BYTES_PER_SLOT = 3887
+# The same for the closed forms (_poly_r_J, the larger of the two), measured
+# the same way at the same layout: 496.73 and 497.42 B in two processes on
+# an NVIDIA H100 80GB HBM3, rounded up.  PINHOLE and the polynomial kinds
+# 2-4 take these paths.
+JAC_CLOSED_BYTES_PER_SLOT = 498
 
 
 class PtObsTable(NamedTuple):
@@ -168,11 +191,13 @@ def _prior_residual_one(pose6, prior_C, prior_w):
 
 
 def _intr_rows(a, p):
-    """Per-obs rows of an intrinsic table; one shared row is broadcast."""
+    """Per-obs rows of an intrinsic table; one shared row is broadcast.
+    (index_select: indexing gathers (O, 8) rows many times slower on the
+    card.)"""
     O = p.obs_pose.shape[0]
     if a.shape[0] == 1:
         return a[0].expand((O,) + a.shape[1:])
-    return a[p.obs_intr]
+    return torch.index_select(a, 0, p.obs_intr)
 
 
 def _gather_params(p: BAProblem):
@@ -181,9 +206,13 @@ def _gather_params(p: BAProblem):
             _intr_rows(p.intr_kind, p), _intr_rows(p.intr_wh, p))
 
 
-def residuals(p: BAProblem, cam_fast=False):
-    if cam_fast:
+def residuals(p: BAProblem, cam_fast=JAC_GENERIC):
+    """Reprojection residuals (O, 2) through the projection of the path
+    `cam_fast` (cam_fast_ok)."""
+    if cam_fast == JAC_PINHOLE:
         return _fast_pinhole_project(p)[0]
+    if cam_fast == JAC_POLY:
+        return _poly_project(p)[0]
     g = _gather_params(p)
     return _residual_one(*g, p.obs_x)
 
@@ -203,6 +232,19 @@ def _fast_pinhole_project(p: BAProblem):
     return r, w, X, zs, px, py, f
 
 
+def _rodrigues_bc(w):
+    """The coefficients b, c of Jr(w) = I - b [w]_x + c [w]_x^2, with their
+    small-angle series."""
+    th2 = (w * w).sum(-1)
+    small = th2 < 1e-8
+    th = torch.sqrt(torch.clamp(th2, min=1e-16))
+    b = torch.where(small, 0.5 - th2 / 24.0,
+                    (1.0 - torch.cos(th)) / torch.clamp(th2, min=1e-16))
+    c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
+                    (th - torch.sin(th)) / torch.clamp(th2 * th, min=1e-24))
+    return b, c
+
+
 def _fast_pinhole_r_J(p: BAProblem):
     """Residuals and the (O,2,6) / (O,2,8) / (O,2,3) Jacobian blocks in
     closed form, for problems whose every intrinsic is a plain PINHOLE."""
@@ -214,13 +256,7 @@ def _fast_pinhole_r_J(p: BAProblem):
     JX0 = so3.rotate(-w, A0)                               # rows of A R
     JX1 = so3.rotate(-w, A1)
     Jx3 = torch.stack([JX0, JX1], -2)
-    th2 = (w * w).sum(-1)
-    small = th2 < 1e-8
-    th = torch.sqrt(torch.clamp(th2, min=1e-16))
-    b = torch.where(small, 0.5 - th2 / 24.0,
-                    (1.0 - torch.cos(th)) / torch.clamp(th2, min=1e-16))
-    c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
-                    (th - torch.sin(th)) / torch.clamp(th2 * th, min=1e-24))
+    b, c = _rodrigues_bc(w)
 
     def row_jw(JXk):
         # d r / d w = -(A R) [X]_x Jr(w), row form via cross products
@@ -238,6 +274,92 @@ def _fast_pinhole_r_J(p: BAProblem):
                      torch.zeros((O, 2, p.intr_params.shape[1] - 3), dtype=r.dtype,
                                  device=r.device)], -1)
     return r, Jp6, Ji8, Jx3
+
+
+def _slot_cols(table, ids):
+    """The columns of a per-pose or per-intrinsic table (N, k) at each
+    slot, (k, O) with each column contiguous; (k, 1) for one shared row."""
+    if table.shape[0] == 1:
+        return table.T
+    return torch.index_select(table.T.contiguous(), 1, ids)
+
+
+def _interleave(cols):
+    """k (O,) columns as one contiguous (O, k) block: a transposed copy of
+    their stack, on the card about ten times faster than torch.stack on
+    the last axis."""
+    return torch.stack(cols, 0).T.contiguous()
+
+
+def _poly_project(p: BAProblem):
+    """The projection of the polynomial kinds 2-4 on one (O,) tensor a
+    component: Xc = R X + t with R (row-major) and t gathered from the
+    poses, p = (x, y) / z, then cameras.add_disto's additive Brown T2 term
+    (k1, k2, k3, t1, t2 = params[3:8]; radial K1 and K3 hold the unused
+    ones at 0), then f p_d + (ppx, ppy).  Returns r (O, 2) and what the
+    Jacobians reuse."""
+    g = _slot_cols(torch.cat([so3.expmap(p.rotvec).reshape(-1, 9), p.t], 1), p.obs_pose)
+    X = _pt_expand(p.X, p).T.contiguous()
+    Xc = [g[3 * i] * X[0] + g[3 * i + 1] * X[1] + g[3 * i + 2] * X[2] + g[9 + i]
+          for i in range(3)]
+    z = Xc[2]
+    zs = cm.clamp_depth(z)
+    x = Xc[0] / zs
+    y = Xc[1] / zs
+    ic = _slot_cols(p.intr_params, p.obs_intr)
+    f, ppx, ppy, k1, k2, k3, t1, t2 = ic
+    r2 = x * x + y * y
+    k_diff = k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    xd = x + (x * k_diff + (t2 * (r2 + 2 * x * x) + 2 * t1 * x * y))
+    yd = y + (y * k_diff + (t1 * (r2 + 2 * y * y) + 2 * t2 * x * y))
+    r = _interleave([f * xd + ppx - p.obs_x[:, 0], f * yd + ppy - p.obs_x[:, 1]])
+    return r, (g[:9], X, z, zs, x, y, r2, k_diff, xd, yd, ic)
+
+
+def _poly_r_J(p: BAProblem):
+    """Residuals and the (O,2,6) / (O,2,8) / (O,2,3) Jacobian blocks in
+    closed form, in the problem's dtype, for problems whose every intrinsic
+    is of kind 2, 3 or 4, one (O,) tensor a component.  d r / d Xc = A =
+    f D dp/dXc, D = dp_d/dp the distortion's symmetric 2x2 derivative, with
+    dp/dXc's z column zero where clamp_depth clamped the depth (as the
+    generic path's torch.where gives); the point rows A R; the pose rows
+    -(A R) [X]_x Jr(w) through the small-angle/Rodrigues coefficients b, c
+    of _fast_pinhole_r_J's row_jw, -(I + b [w]_x + c [w]_x^2) formed once a
+    pose; and all eight intrinsic columns (the masks hold the unused
+    ones)."""
+    r, (R, X, z, zs, x, y, r2, k_diff, xd, yd, ic) = _poly_project(p)
+    f, _, _, k1, k2, k3, t1, t2 = ic
+    dk = 2.0 * (k1 + 2.0 * k2 * r2 + 3.0 * k3 * r2 * r2)   # d k_diff / d x = dk x
+    d00 = 1.0 + k_diff + dk * x * x + 6.0 * t2 * x + 2.0 * t1 * y
+    d11 = 1.0 + k_diff + dk * y * y + 6.0 * t1 * y + 2.0 * t2 * x
+    d01 = dk * x * y + 2.0 * (t1 * x + t2 * y)
+    fz = f / zs
+    dz = torch.where(zs == z, -fz, torch.zeros_like(fz))   # 0 where clamped
+    a01 = fz * d01
+    A = ((fz * d00, a01, dz * (d00 * x + d01 * y)),
+         (a01, fz * d11, dz * (d01 * x + d11 * y)))
+    w = p.rotvec
+    b, c = _rodrigues_bc(w)
+    K = so3.skew(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    M = _slot_cols(-(eye + b[:, None, None] * K + c[:, None, None] * (K @ K)).reshape(-1, 9),
+                   p.obs_pose)
+    Jp, Jx = [], []
+    for Ak in A:
+        JX = [Ak[0] * R[j] + Ak[1] * R[3 + j] + Ak[2] * R[6 + j] for j in range(3)]
+        u = (JX[1] * X[2] - JX[2] * X[1], JX[2] * X[0] - JX[0] * X[2],
+             JX[0] * X[1] - JX[1] * X[0])                 # (A R) x X
+        Jp += [M[3 * i] * u[0] + M[3 * i + 1] * u[1] + M[3 * i + 2] * u[2]
+               for i in range(3)] + list(Ak)
+        Jx += JX
+    O = x.shape[0]
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    fr2 = f * r2
+    fxy2 = 2.0 * f * x * y
+    Ji = [xd, one, zero, fr2 * x, fr2 * r2 * x, fr2 * r2 * r2 * x, fxy2, f * (r2 + 2 * x * x),
+          yd, zero, one, fr2 * y, fr2 * r2 * y, fr2 * r2 * r2 * y, f * (r2 + 2 * y * y), fxy2]
+    return (r, _interleave(Jp).reshape(O, 2, 6), _interleave(Ji).reshape(O, 2, 8),
+            _interleave(Jx).reshape(O, 2, 3))
 
 
 def _generic_r_J(p: BAProblem):
@@ -271,7 +393,7 @@ def _reduce(group, *ts):
     return out if len(out) > 1 else out[0]
 
 
-def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False, group=None):
+def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=JAC_GENERIC, group=None):
     """0.5 * sum rho(|r|^2) over weighted observations, plus the priors
     (added once, after the sum over the ranks of `group`)."""
     r = residuals(p, cam_fast)
@@ -287,11 +409,11 @@ def robust_cost(p: BAProblem, cfg: BAConfig, cam_fast=False, group=None):
 
 
 def _weighted_r_J(p: BAProblem, cfg: BAConfig, cam_fast):
-    r, Jp6, Ji8, Jx3 = _fast_pinhole_r_J(p) if cam_fast else _generic_r_J(p)
+    r, Jp6, Ji8, Jx3 = (_generic_r_J, _fast_pinhole_r_J, _poly_r_J)[cam_fast](p)
     w = _huber_sqrt_weight(r, cfg.huber_a, cfg.use_huber) * p.obs_w
     r = r * w[:, None]
     Jp6 = Jp6 * w[:, None, None] * p.mask_pose[p.obs_pose][:, None, :]
-    Ji8 = Ji8 * w[:, None, None] * p.mask_intr[p.obs_intr][:, None, :]
+    Ji8 = Ji8 * w[:, None, None] * _intr_rows(p.mask_intr, p)[:, None, :]
     Jx3 = Jx3 * w[:, None, None] * _pt_expand(p.mask_X[:, None], p)[:, None, :]
     return r, Jp6, Ji8, Jx3
 
@@ -309,12 +431,15 @@ def _obs_range(p: BAProblem, s0, s1):
                                    ("obs_pose", "obs_intr", "obs_point", "obs_x", "obs_w")})
 
 
-def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
-    """Weighted residuals and Jacobian blocks with the masks applied: in one
-    pass, or in chunks of p.jac_slots slots written into the blocks."""
+def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=JAC_GENERIC):
+    """Weighted residuals and Jacobian blocks with the masks applied, on the
+    path `cam_fast` (cam_fast_ok): in one pass, or in chunks of p.jac_slots
+    slots written into the blocks."""
     O, step = p.obs_pose.shape[0], p.jac_slots
+    closed = cam_fast != JAC_GENERIC
     if step is None or step >= O:
         count("ba.jac_chunks", 1)
+        count("ba.jac_closed", int(closed))
         return _weighted_r_J(p, cfg, cam_fast)
     out = None
     for s0 in range(0, O, step):
@@ -327,19 +452,23 @@ def jacobians(p: BAProblem, cfg: BAConfig, cam_fast=False):
             o[s0:s1] = b
         del blocks
     count("ba.jac_chunks", -(-O // step))
+    count("ba.jac_closed", -(-O // step) if closed else 0)
     return tuple(out)
 
 
-def jac_chunk_slots(p: BAProblem):
-    """Slots of one chunk of jacobians on the card: half of what the process
-    can still allocate (the card's free memory and the allocator's unused
-    cache), less the blocks jacobians returns, over JAC_BYTES_PER_SLOT, in
-    whole rows of the point-major layout; None where one pass fits."""
+def jac_chunk_slots(p: BAProblem, cam_fast=JAC_GENERIC):
+    """Slots of one chunk of jacobians on the path `cam_fast` on the card:
+    half of what the process can still allocate (the card's free memory
+    and the allocator's unused cache), less the blocks jacobians returns,
+    over the path's bytes a slot (JAC_BYTES_PER_SLOT, or
+    JAC_CLOSED_BYTES_PER_SLOT for a closed form), in whole rows of the
+    point-major layout; None where one pass fits."""
     dev = p.X.device
     free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
             - torch.cuda.memory_allocated(dev))
     O = p.obs_pose.shape[0]
-    slots = (free - O * 36 * p.X.element_size()) // 2 // JAC_BYTES_PER_SLOT
+    per_slot = JAC_BYTES_PER_SLOT if cam_fast == JAC_GENERIC else JAC_CLOSED_BYTES_PER_SLOT
+    slots = (free - O * 36 * p.X.element_size()) // 2 // per_slot
     if slots >= O:
         return None
     t = p.pt_obs
@@ -371,13 +500,15 @@ def k3_gate(p: BAProblem, group=None):
     return L1 > 0 and p.obs_pose.shape[0] % L1 == 0
 
 
-def with_plans(p: BAProblem, group=None):
+def with_plans(p: BAProblem, group=None, cam_fast=JAC_GENERIC):
     """The problem with K2 plans for its pose and intrinsic ids, for its
     point ids when it has no point tables, or for its rows' points when it
     has no group table, K3's plan, reusing K2's, when k3_gate holds, and
-    the Jacobians' chunk (jac_chunk_slots): all built once per problem on
-    the card, whenever seg_plans is None, so a problem whose seg_plans were
-    cleared gets them all anew.  The plain CPU path needs none."""
+    the Jacobians' chunk on the path `cam_fast` (jac_chunk_slots; the
+    generic path's, the largest, where the caller names none): all built
+    once per problem on the card, whenever seg_plans is None, so a problem
+    whose seg_plans were cleared gets them all anew.  The plain CPU path
+    needs none."""
     if p.obs_pose.device.type != "cuda" or p.seg_plans is not None:
         return p
     seg_plans = (k2.seg_sum_plan(p.obs_pose, p.rotvec.shape[0]),
@@ -390,7 +521,7 @@ def with_plans(p: BAProblem, group=None):
         k3_plan=(k3.smatvec_plan(p.obs_pose, p.obs_intr, t.row_point, n_pts,
                                  p.rotvec.shape[0], p.intr_params.shape[0], seg_plans)
                  if k3_gate(p, group) else None),
-        jac_slots=jac_chunk_slots(p))
+        jac_slots=jac_chunk_slots(p, cam_fast))
 
 
 def build_pt_obs(obs_point, obs_w, n_points, group_budget_elems=1 << 24):
@@ -669,9 +800,16 @@ def _apply_step(p: BAProblem, d_pose, d_intr, d_X):
 
 
 def cam_fast_ok(p: BAProblem):
-    """True when every intrinsic row is a plain PINHOLE."""
+    """The Jacobians' path for p's intrinsic kinds, in one host read:
+    JAC_PINHOLE where every row is a plain PINHOLE, JAC_POLY where every
+    row is of kind 2, 3 or 4, JAC_GENERIC otherwise (a fisheye or
+    spherical row, or no row)."""
     kinds = p.intr_kind
-    return kinds.numel() > 0 and host_read((kinds == cm.PINHOLE).all())
+    if kinds.numel() == 0:
+        return JAC_GENERIC
+    poly = ((kinds == cm.PINHOLE_RADIAL_K1) | (kinds == cm.PINHOLE_RADIAL_K3)
+            | (kinds == cm.PINHOLE_BROWN)).all()
+    return host_read((kinds == cm.PINHOLE).all() * JAC_PINHOLE + poly * JAC_POLY)
 
 
 def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
@@ -684,7 +822,7 @@ def lm_step(p: BAProblem, lam, cfg: BAConfig, cam_fast=None, group=None,
     with span("ba.lm_step", device=on_card):
         if cam_fast is None:
             cam_fast = cam_fast_ok(p)
-        p = with_plans(p, group)
+        p = with_plans(p, group, cam_fast)
         lam = torch.as_tensor(lam, dtype=p.X.dtype, device=p.X.device)
         with span("ba.cost", device=on_card):
             cost0 = robust_cost(p, cfg, cam_fast, group)
@@ -712,7 +850,7 @@ def adjust(p: BAProblem, cfg: BAConfig = BAConfig(), verbose=False, group=None,
     with span("ba.adjust"):
         cam_fast = cam_fast_ok(p)
         with span("ba.plans"):
-            p = with_plans(p, group)
+            p = with_plans(p, group, cam_fast)
         lam = torch.as_tensor(cfg.lam_init, dtype=p.X.dtype, device=p.X.device)
         cost = host_read(robust_cost(p, cfg, cam_fast, group))
         n_acc = 0

@@ -22,7 +22,8 @@ from openmvg_torch.sfm import ba
 
 def _problem(dtype="float64", kind=cm.PINHOLE_RADIAL_K3, n_obs=1300):
     """A small BAL-like problem (the benchmark's generator and layout):
-    camera model 3 takes the generic Jacobians, PINHOLE the closed form."""
+    camera model 3 takes the polynomial closed form, PINHOLE its own closed
+    form, fisheye the generic Jacobians."""
     prob = bal.make_problem(None, 12, 240, n_obs, problem_seed=3)
     p = ba_solve.program_problem(prob, dict(camera_model=cm.PINHOLE_RADIAL_K3,
                                             image_wh=[2000, 2000], dtype=dtype), "cpu")
@@ -30,6 +31,8 @@ def _problem(dtype="float64", kind=cm.PINHOLE_RADIAL_K3, n_obs=1300):
         mask = torch.zeros_like(p.mask_intr)
         mask[:, 0] = 1.0
         p = p._replace(intr_kind=torch.full_like(p.intr_kind, cm.PINHOLE), mask_intr=mask)
+    elif kind != cm.PINHOLE_RADIAL_K3:
+        p = p._replace(intr_kind=torch.full_like(p.intr_kind, kind))
     return p
 
 
@@ -39,15 +42,16 @@ def _slots_a_row(p):
 
 @pytest.mark.parametrize("rows", [1, 5, 50])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("kind", [cm.PINHOLE_RADIAL_K3, cm.PINHOLE])
+@pytest.mark.parametrize("kind", [cm.PINHOLE_RADIAL_K3, cm.PINHOLE, cm.PINHOLE_FISHEYE])
 def test_chunked_jacobians_equal_the_one_pass_bit_for_bit(kind, dtype, rows):
     """Each row's blocks depend on that row alone, so chunks of a few rows
     (the last one short) give the one-pass blocks bit for bit, in the same
-    strides."""
+    strides, on each of the three paths."""
     p = _problem(dtype, kind)
     cfg = ba.BAConfig()
     fast = ba.cam_fast_ok(p)
-    assert fast == (kind == cm.PINHOLE)
+    assert fast == {cm.PINHOLE_RADIAL_K3: ba.JAC_POLY, cm.PINHOLE: ba.JAC_PINHOLE,
+                    cm.PINHOLE_FISHEYE: ba.JAC_GENERIC}[kind]
     ref = ba.jacobians(p, cfg, fast)
     step = rows * _slots_a_row(p)
     assert p.obs_pose.shape[0] % step or rows == 1
@@ -83,23 +87,30 @@ def test_a_solve_with_chunked_jacobians_is_bit_identical():
         assert torch.equal(getattr(a[0], f), getattr(b[0], f))
 
 
-@pytest.mark.parametrize("free_gib,expect", [(64.0, None), (0.004, "chunks")])
+@pytest.mark.parametrize("free_gib,expect", [(64.0, None), (0.004, "chunks"),
+                                             (0.0005, "closed_form_chunks")])
 def test_the_chunk_comes_from_the_free_memory(free_gib, expect, monkeypatch):
     """jac_chunk_slots: half of what the process can still allocate (the
     card's free memory and the allocator's unused cache), less the blocks
-    jacobians returns, over JAC_BYTES_PER_SLOT, in whole rows; None where
-    one pass fits."""
+    jacobians returns, over the path's bytes a slot (JAC_BYTES_PER_SLOT for
+    the generic path, JAC_CLOSED_BYTES_PER_SLOT for a closed form), in
+    whole rows; None where one pass fits.  The closed form's case has no
+    unused cache, since its few bytes a slot would fit this problem in
+    3 MiB."""
+    closed = expect == "closed_form_chunks"
     p = _problem("float32")
     O, R = p.obs_pose.shape[0], _slots_a_row(p)
-    free, cached = int(free_gib * 2 ** 30), 3 << 20
+    free, cached = int(free_gib * 2 ** 30), (0 if closed else 3 << 20)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (free, 80 << 30))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: cached + (5 << 20))
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: 5 << 20)
-    got = ba.jac_chunk_slots(p)
+    path = ba.JAC_POLY if closed else ba.JAC_GENERIC
+    got = ba.jac_chunk_slots(p, path)
     if expect is None:
         assert got is None
         return
-    slots = (free + cached - O * 36 * 4) // 2 // ba.JAC_BYTES_PER_SLOT
+    per_slot = ba.JAC_BYTES_PER_SLOT if path == ba.JAC_GENERIC else ba.JAC_CLOSED_BYTES_PER_SLOT
+    slots = (free + cached - O * 36 * 4) // 2 // per_slot
     assert got == slots // R * R and 0 < got < O and got % R == 0
 
 

@@ -42,8 +42,8 @@ def _cpu_session():
 
 def _problem(kind=cm.PINHOLE_RADIAL_K3):
     """A small BAL-like float64 problem (the benchmark's generator and
-    layout): camera model 3 takes the generic Jacobians, PINHOLE (f free)
-    the closed form."""
+    layout): camera model 3 takes the polynomial closed form, PINHOLE (f
+    free) its own."""
     prob = bal.make_problem(None, 12, 240, 1300, problem_seed=3)
     p = ba_solve.program_problem(prob, dict(camera_model=cm.PINHOLE_RADIAL_K3,
                                             image_wh=[2000, 2000], dtype="float64"), "cpu")
@@ -283,7 +283,8 @@ def _hand_built():
     add("host_read", 151, 152, c)
     add("host_read", 200, 201, b)
     return {"spans": S, "counters": {"ba.cg_iterations": 17, "ba.cg_k3": 12,
-                                     "ba.lm_accepted": 2}}
+                                     "ba.lm_accepted": 2, "ba.jac_chunks": 6,
+                                     "ba.jac_closed": 4}}
 
 
 def _trace(busy_ms):
@@ -312,6 +313,7 @@ BUSY = [(1, 1.5), (3, 10), (12, 21.2), (23, 30), (31, 97.5), (112, 160), (161, 2
     ("idle_read.ba", 100.0 * (1.5 + 1.8 + 14.5 + 19.5) / 220),
     ("idle_issue.ba", 100.0 * (2 + 1 + 1) / 220),
     ("k3_share.ba", 100.0 * 12 / 17),
+    ("jac_closed.ba", 100.0 * 4 / 6),
 ])
 def test_each_reader_on_hand_built_spans(name, value, monkeypatch):
     monkeypatch.setattr(omt, "records", _hand_built)
@@ -381,6 +383,27 @@ def test_k3_roofline_final_reads_the_bound_without_a_table(monkeypatch):
     assert harness.reader("k3_roofline.ba")(ctx) is None
 
 
+@pytest.mark.parametrize("kind,share", [(cm.PINHOLE_RADIAL_K3, 100.0), (cm.PINHOLE, 100.0),
+                                        (cm.PINHOLE_FISHEYE, 0.0)])
+def test_jac_closed_reads_the_closed_form_s_share_of_a_solve_s_chunks(kind, share,
+                                                                       monkeypatch):
+    """jac_closed.ba after real solves: 100% on the closed forms, 0% on
+    forward mode; None for a program that counts ba.jac_chunks but not
+    ba.jac_closed."""
+    p = _problem(kind if kind != cm.PINHOLE_FISHEYE else cm.PINHOLE_RADIAL_K3)
+    if kind == cm.PINHOLE_FISHEYE:
+        p = p._replace(intr_kind=torch.full_like(p.intr_kind, kind))
+    with _cpu_session():
+        ba.adjust(p, ba.BAConfig(max_iterations=2))
+    read = harness.reader("jac_closed.ba")
+    assert read({}) == share
+    c = omt.records()["counters"]
+    older = {"spans": omt.records()["spans"],
+             "counters": {k: v for k, v in c.items() if k != "ba.jac_closed"}}
+    monkeypatch.setattr(omt, "records", lambda: older)
+    assert read({}) is None
+
+
 def test_peak_mem_final_reads_the_allocators_peak_over_the_card():
     """peak_mem.final: the allocator's peak over the window (the harness
     resets it as the window starts), as a share of the card's total
@@ -399,7 +422,7 @@ def test_peak_mem_final_reads_the_allocators_peak_over_the_card():
 @pytest.mark.parametrize("name", ["cg_iters.ba", "host_reads.ba", "lm_accept.ba", "jac_s.ba",
                                   "cg_s.ba", "idle_read.ba", "idle_issue.ba",
                                   "k3_share.ba", "k3_roofline.ba", "k3_roofline.final",
-                                  "peak_mem.final"])
+                                  "peak_mem.final", "jac_closed.ba"])
 def test_each_reader_gives_none_where_nothing_was_recorded(name, monkeypatch):
     read = harness.reader(name)
     assert read({"trace": _trace(BUSY)}) is None      # no records
